@@ -1,8 +1,10 @@
-"""State carried across from the JAX package: a baked scene as NumPy arrays.
+"""State carried across from the JAX package: baked scenes as NumPy arrays.
 
 The caller converts the reference's ``FlatScene`` leaves (and its
-``clusters`` dict) with ``np.asarray``; this module never imports JAX.  The
-port's own bake (scene/flatten.py) produces the same arrays bit for bit.
+``clusters`` dict) with ``np.asarray``, and an ``InstancedScene``'s bakes,
+instance matrices and lights likewise; this module never imports JAX.  The
+port's own bakes (scene/flatten.py, render/instanced.py) produce the same
+arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -10,11 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytpu_torch.device import resolve
 from raytpu_torch.scene.types import FlatScene
 
 TABLES = ("tri_shade", "mesh_material", "mesh_convex", "mat_reflect",
-          "mat_use_texture", "mat_interp_normals", "mat_texture",
-          "textures", "tex_hw")
+          "mat_transparent", "mat_refraction", "mat_use_texture",
+          "mat_interp_normals", "mat_texture", "textures", "tex_hw")
 META = ("num_tris", "num_meshes", "num_lights", "light_kinds",
         "has_transparent", "has_textures")
 
@@ -23,14 +26,17 @@ def _tensor(a):
     return torch.from_numpy(np.array(a))  # a contiguous, writable copy
 
 
-def flat_scene_from_numpy(arrays: dict, meta: dict, device="cpu") -> FlatScene:
-    """Build the port's FlatScene from the reference bake's arrays.
+def flat_scene_from_numpy(arrays: dict, meta: dict,
+                          device="cuda") -> FlatScene:
+    """Build the port's FlatScene from the reference bake's arrays, on
+    ``device`` (the card unless the caller names another).
 
     ``arrays``: the tables named in ``TABLES``, ``lights`` (dict) and
     ``clusters`` (dict with ``block`` (NCG, 24, C), ``aabb`` (6, 8, NC8),
     ``sub_plane`` (1, 5, 8, NC8) and ``root`` (1, 8)).  ``meta``: the
     static fields named in ``META``.  The cull tables are cut from the
     reference's padded (8, NC8) grids to (6, NCG) and (5, NCG)."""
+    dev = resolve(device)
     cl = arrays["clusters"]
     block = np.asarray(cl["block"], np.float32)
     ncg = block.shape[0]
@@ -62,4 +68,24 @@ def flat_scene_from_numpy(arrays: dict, meta: dict, device="cpu") -> FlatScene:
         **tables,
         **{k: meta[k] for k in META},
     )
-    return scene.to(device)
+    return scene.to(dev)
+
+
+def instanced_scene_from_numpy(bakes, instances, lights: dict,
+                               num_lights: int, device="cuda"):
+    """Build the port's InstancedScene from a reference ``InstancedScene``'s
+    arrays, on ``device`` (the card unless the caller names another).
+
+    ``bakes``: per shared bake, the ``(arrays, meta)`` that
+    ``flat_scene_from_numpy`` takes; ``instances``: per instance,
+    ``(mesh_index, world, inv_world)`` with (4, 4) matrices; ``lights``: the
+    packed light tables."""
+    from raytpu_torch.accel.instanced import Instance
+    from raytpu_torch.render.instanced import assemble_instanced
+
+    dev = resolve(device)
+    return assemble_instanced(
+        [flat_scene_from_numpy(a, m, device=dev) for a, m in bakes],
+        [Instance(int(mi), np.asarray(w, np.float32),
+                  np.asarray(iw, np.float32)) for mi, w, iw in instances],
+        {k: np.array(v) for k, v in lights.items()}, num_lights, dev)

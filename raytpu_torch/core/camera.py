@@ -9,6 +9,7 @@ import torch
 
 from raytpu_torch.core import xna
 from raytpu_torch.core.math3d import normalize
+from raytpu_torch.device import resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +34,13 @@ class Camera:
         return xna.perspective_fov(self.fov, self.aspect, self.near, self.far)
 
 
-def camera_rays(camera: Camera, width: int, height: int, device="cpu"):
+def camera_rays(camera: Camera, width: int, height: int, device="cuda"):
     """Primary rays through the integer pixel coordinates (pixel corners,
     RayTracer.cs:412-413), raster-ordered: index = y * width + x.
 
     Returns ``(origins, directions)``, each (width * height, 3) on
-    ``device``."""
+    ``device`` (the card unless the caller names another)."""
+    device = resolve(device)
     ys, xs = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),

@@ -36,3 +36,19 @@ def normalize(v):
 def reflect(d, n):
     """XNA ``Vector3.Reflect``: d - 2*dot(d, n)*n (RayTracer.cs:549)."""
     return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def refract_xna(direction, normal, n1, n2):
+    """The reference's vector Snell refraction (RayTracer.cs:675-690).
+
+    Returns the *unnormalized* refraction direction; the caller normalizes
+    (RayTracer.cs:694).  Total internal reflection produces NaN (the C# code
+    takes sqrt of a negative), which downstream intersection tests treat as
+    a miss — replicated deliberately.  ``n1``/``n2``: (R,) tensors."""
+    ratio = n1 / n2
+    cos1 = dot(normal, -direction)
+    cos2 = torch.sqrt(1.0 - ratio * ratio * (1.0 - cos1 * cos1))
+    term = (ratio * cos1 - cos2)[..., None]
+    base = ratio[..., None] * direction
+    return torch.where((cos1 >= 0.0)[..., None], base + term * normal,
+                       base - term * normal)

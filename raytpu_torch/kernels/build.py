@@ -29,11 +29,14 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# Rays, tile, cluster tables and sizes, then each entry point's own.
+_COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
 _SIGNATURES = {
-    "rt_nearest_hit": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                       _P, _I, _P, _P, _P, _P, _P, _P, _P],
-    "rt_any_hit": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                   _P, _P, _P],
+    # tri_shade, cull, pretest, recull_every, t, code, u, v, tri, rows,
+    # iters, tests, ray_tests, stream
+    "rt_nearest_hit": _COMMON + [_P, _I, _I, _I] + [_P] * 10,
+    # cull, pretest, recull_every, t, code, iters, tests, ray_tests, stream
+    "rt_any_hit": _COMMON + [_I, _I, _I] + [_P] * 6,
 }
 
 _library = None

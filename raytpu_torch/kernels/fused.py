@@ -13,6 +13,30 @@ at the first accepted hit within ``t_max``.  The tile stops when all its
 rays have settled or its entries run out.  The result is exact: the same
 hits as testing every triangle.
 
+Two opt-ins change the walk's shape and never its result (the counterparts
+of ``_fused_kernel``'s ``pretest`` and ``recull_every``):
+
+- ``pretest``: before a picked cluster's triangles are tested, every
+  unresolved ray is slab-tested against the cluster's own box (its ``aabb``
+  row, which equals block rows 18-23, widened by the root margin) up to its
+  cap ``min(best_t, t_max)``; when no ray can reach the box before its cap,
+  the cluster's tests are skipped.  Skipping is exact: a resolved ray's
+  best is already at or before every untested entry, and an unresolved ray
+  outside the box cannot hit inside it.
+- ``recull_every``: every that many trips (after the settle check, while
+  the tile walks on) the entries of the clusters not yet consumed are
+  rebuilt from the beam of the unresolved rays only, pruned at the largest
+  of their caps.  A sub-beam's interval bounds are never below the beam's
+  in IEEE float arithmetic (every step is monotone), so a re-culled entry is
+  never below the pick just consumed and the picks stay in non-decreasing
+  order; consumed clusters are marked +inf (above every entry, FLOAT_MAX
+  included) and stay consumed.
+
+Both walks count per tile the trips (clusters picked, the counterpart of
+the reference kernel's ``iters``), the clusters whose triangles were
+tested (trips less pretest skips) and the ray tests the function needs
+(each tested cluster's unresolved rays, summed).
+
 ``walk_cuda`` launches the kernels of ``csrc/walk.cu``; ``walk_plain`` is
 the same walk in PyTorch, with the same arithmetic in the same order, and
 the two agree bit for bit on the card.  ``nearest_hit_fused`` takes the
@@ -46,9 +70,19 @@ SMEM_LIMIT = 232448 - 512
 # chunk of tiles.
 _PAIR_BUDGET = 1 << 24
 _CULL_CODE = {False: 0, True: 1, "reverse": 2}
+# Entry of a consumed cluster: above every entry bound, FLOAT_MAX included.
+CONSUMED = float("inf")
 
-# Launches of each CUDA kernel; ``walk_cuda`` adds one per launch.
-LAUNCHES = {"nearest": 0, "any_hit": 0}
+# Launches of each CUDA kernel instantiation (query kind, and ``_pretest``
+# for the pretest variant); ``walk_cuda`` adds one per launch.
+LAUNCHES = {"nearest": 0, "any_hit": 0, "nearest_pretest": 0,
+            "any_hit_pretest": 0}
+
+
+def kernel_name(any_hit: bool, pretest: bool) -> str:
+    """The ``LAUNCHES`` key of a walk kernel instantiation."""
+    return ("any_hit" if any_hit else "nearest") + (
+        "_pretest" if pretest else "")
 
 
 class Query(NamedTuple):
@@ -66,8 +100,11 @@ class Query(NamedTuple):
 class WalkOut(NamedTuple):
     """Raw walk results per padded ray.  ``t``: best distance (any-hit: 0 on
     hits), the capped t bound on misses; ``code``: winning slot (any-hit: 0),
-    -1 on misses; nearest only: ``u``, ``v``, ``tri`` and the (R, 32) shade
-    ``rows`` (channel 31 the mesh id as a value, zeros on misses)."""
+    -1 on misses; nearest only: ``u``, ``v``, ``tri`` and, when asked for,
+    the (R, 32) shade ``rows`` (channel 31 the mesh id as a value, zeros on
+    misses).  Per tile, (NT,) int32: ``iters``, the walk's trips;
+    ``tests``, the clusters whose triangles were tested; ``ray_tests``, the
+    unresolved rays of each tested cluster, summed."""
 
     t: torch.Tensor
     code: torch.Tensor
@@ -75,6 +112,12 @@ class WalkOut(NamedTuple):
     v: Optional[torch.Tensor] = None
     tri: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
+    iters: Optional[torch.Tensor] = None
+    tests: Optional[torch.Tensor] = None
+    ray_tests: Optional[torch.Tensor] = None
+
+
+_PER_TILE = ("iters", "tests", "ray_tests")
 
 
 def pack_query(origin, direction, ignore_tri=None, ignore_mesh=None,
@@ -111,7 +154,7 @@ def pack_query(origin, direction, ignore_tri=None, ignore_mesh=None,
 
 def assemble_hit(out: WalkOut, r: int, any_hit: bool):
     """The ``Hit`` of the first ``r`` rays, and their rows (None for
-    any-hit)."""
+    any-hit or when the walk wrote none)."""
     hit = out.code[:r] >= 0
     if any_hit:
         t = torch.where(hit, out.t[:r], INF)
@@ -122,19 +165,24 @@ def assemble_hit(out: WalkOut, r: int, any_hit: bool):
     u = torch.where(hit, out.u[:r], 0.0)
     v = torch.where(hit, out.v[:r], 0.0)
     tri = torch.where(hit, out.tri[:r], -1).to(torch.int32)
-    return Hit(hit=hit, t=t, u=u, v=v, tri=tri), out.rows[:r]
+    rows = None if out.rows is None else out.rows[:r]
+    return Hit(hit=hit, t=t, u=u, v=v, tri=tri), rows
 
 
 def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
                       ignore_mesh=None, cull=True, tile_size: int = 256,
                       t_max=None, any_hit: bool = False,
-                      return_rows: bool = False):
+                      recull_every: int = 0, pretest: bool = False,
+                      return_iters: bool = False, return_rows: bool = False):
     """Exact nearest hit (or any-hit occlusion) by the cluster walk.
 
     CPU tensors go through ``walk_plain``, CUDA tensors through the CUDA
-    kernels.  ``return_rows``: return ``(Hit, rows)`` with the winners'
-    (R, 32) shade rows; channel 31 carries the mesh id as a float value and
-    misses get all-zero rows (None for any-hit queries)."""
+    kernels.  ``pretest``/``recull_every``: the walk-shape opt-ins (module
+    docstring); the hits are the same with and without them.
+    ``return_rows``: return ``(Hit, rows)`` with the winners' (R, 32) shade
+    rows; channel 31 carries the mesh id as a float value and misses get
+    all-zero rows (None for any-hit queries).  Otherwise ``return_iters``:
+    return ``(Hit, iters)`` with the (NT,) int32 trips per tile."""
     if origin.device.type == "cuda":
         walk = walk_cuda
     elif origin.device.type == "cpu":
@@ -144,9 +192,12 @@ def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
     q = pack_query(origin, direction, ignore_tri, ignore_mesh, t_max,
                    tile_size)
     out = walk(scene.clusters, scene.tri_shade, q, cull=cull,
-               any_hit=any_hit)
+               any_hit=any_hit, pretest=pretest, recull_every=recull_every,
+               rows=return_rows)
     hit, rows = assemble_hit(out, origin.shape[0], any_hit)
-    return (hit, rows) if return_rows else hit
+    if return_rows:
+        return hit, rows
+    return (hit, out.iters) if return_iters else hit
 
 
 # ---- The plain PyTorch walk -------------------------------------------------
@@ -222,18 +273,20 @@ def _entry_bounds(aabb, plane, finite, o3, d3, wcap):
 
 def _pick(ent, idx):
     """Nearest remaining entry of tiles ``idx`` (lowest cluster id on equal
-    entries); consumes it.  Returns (entry, cluster id)."""
+    entries); consumes it.  Returns (entry, cluster id); the entry is INF
+    once the tile's feasible entries run out."""
     e = ent[idx]
     k = e.argmin(1)
     v = e.gather(1, k[:, None])[:, 0]
-    ent[idx, k] = INF
-    return v, k
+    took = v < INF
+    ent[idx[took], k[took]] = CONSUMED
+    return torch.where(took, v, INF), k
 
 
-def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit):
+def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
+                pretest, recull_every, rows):
     """Walk n whole tiles: ``o``/``d`` (n, ts, 3), the rest (n, ts)."""
-    block, root = cl["block"], cl["root"]
-    csize = block.shape[2]
+    block, root, aabb = cl["block"], cl["root"], cl["aabb"]
     dev = o.device
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
@@ -255,61 +308,61 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit):
     cap = torch.where(torch.isfinite(cap), cap, 0.0)
     tmax0 = torch.minimum(tmax_in, cap)
 
-    ent = _entry_bounds(cl["aabb"], cl["plane"], finite, (ox, oy, oz),
-                        (dx, dy, dz), tmax0.amax(1))
+    # Rays that cannot hit (non-finite, or t bound not above 0, NaN
+    # included) start resolved; the entries are pruned at the largest bound
+    # of the others, so a dead ray's NaN bound cannot poison its tile.
+    resolved = ~finite | ~(tmax0 > 0.0)
+    o3, d3 = (ox, oy, oz), (dx, dy, dz)
+    ent = _entry_bounds(aabb, cl["plane"], finite, o3, d3,
+                        torch.where(resolved, -INF, tmax0).amax(1))
 
     n = tmax0.shape[0]
+    # Per-ray best, updated in place by _test_cluster.
     bt = tmax0.clone()
     bc = torch.full_like(itri, -1)
+    state = {"bt": bt, "bc": bc}
     if not any_hit:
-        bu = torch.zeros_like(bt)
-        bv = torch.zeros_like(bt)
-        bd = torch.ones_like(bt)
-        bi = torch.full_like(itri, -1)
-    resolved = ~finite | ~(tmax0 > 0.0)
+        state.update(bu=torch.zeros_like(bt), bv=torch.zeros_like(bt),
+                     bd=torch.ones_like(bt), bi=torch.full_like(itri, -1))
     wx = dy * oz - dz * oy
     wy = dz * ox - dx * oz
     wz = dx * oy - dy * ox
 
+    if pretest:
+        inv_d = [1.0 / torch.where(dk == 0.0, _TINY_DIR, dk) for dk in d3]
+    trips = torch.zeros(n, dtype=torch.int32, device=dev)
+    tests = torch.zeros_like(trips)
+    ray_tests = torch.zeros_like(trips)
+
     tiles = torch.arange(n, device=dev)
-    cur_v, cur_k = _pick(ent, tiles)
-    live = cur_v < INF
+    first, cur_k = _pick(ent, tiles)
+    live = first < INF
     while bool(live.any()):
         idx = tiles[live]
-        k = cur_k[idx]
-        g = block[k, :GEO_ROWS]  # (m, 18, C)
-        row = lambda i: g[:, i, None, :]  # noqa: E731  (m, 1, C)
-        col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
-        rdx, rdy, rdz = col(dx), col(dy), col(dz)
-        rwx, rwy, rwz = col(wx), col(wy), col(wz)
-        nx, ny, nz = row(0), row(1), row(2)
-        det = rdx * nx + rdy * ny + rdz * nz
-        udet = (rwx * row(6) + rwy * row(7) + rwz * row(8)
-                + rdx * row(3) + rdy * row(4) + rdz * row(5))
-        vdet = (rwx * row(12) + rwy * row(13) + rwz * row(14)
-                + rdx * row(9) + rdy * row(10) + rdz * row(11))
-        tdet = row(15) - (col(ox) * nx + col(oy) * ny + col(oz) * nz)
-        tid = g[:, 16].view(torch.int32)[:, None, :]
-        keep = (tid != col(itri)) & (g[:, 17].view(torch.int32)[:, None, :]
-                                     != col(imesh))
-        if any_hit:
-            ok = keep & det_space_accept_within(det, udet, vdet, tdet,
-                                                col(tmax0), cull)
-            bc[idx] = torch.where(ok.any(2), 0, bc[idx])
+        trips[idx] += 1
+        if pretest:
+            # Can any unresolved ray reach the picked cluster's box before
+            # its cap?  Resolved rays have cap -INF.
+            cap = torch.where(resolved[idx], -INF,
+                              torch.minimum(bt[idx], tmax0[idx]))
+            t_en = torch.full_like(cap, -INF)
+            t_ex = torch.full_like(cap, INF)
+            for a, (ok_, ik) in enumerate(zip(o3, inv_d)):
+                mn = (aabb[a, cur_k[idx]] - margin)[:, None]
+                mx = (aabb[3 + a, cur_k[idx]] + margin)[:, None]
+                t1 = (mn - ok_[idx]) * ik[idx]
+                t2 = (mx - ok_[idx]) * ik[idx]
+                t_en = torch.maximum(t_en, torch.minimum(t1, t2))
+                t_ex = torch.minimum(t_ex, torch.maximum(t1, t2))
+            viable = ((t_en <= t_ex) & (t_ex >= 0.0) & (t_en < cap)).any(1)
+            tidx = idx[viable]
         else:
-            ok = keep & det_space_accept(det, udet, vdet, tdet, cull)
-            dist = torch.where(ok, tdet / det, INF)
-            lane = dist.argmin(2, keepdim=True)  # first lane on ties
-            take = lambda q: q.expand_as(dist).gather(2, lane)[..., 0]  # noqa: E731
-            mint = take(dist)
-            upd = mint < bt[idx]
-            code = (k[:, None] * csize + lane[..., 0]).to(bc.dtype)
-            bt[idx] = torch.where(upd, mint, bt[idx])
-            bc[idx] = torch.where(upd, code, bc[idx])
-            bu[idx] = torch.where(upd, take(udet), bu[idx])
-            bv[idx] = torch.where(upd, take(vdet), bv[idx])
-            bd[idx] = torch.where(upd, take(det), bd[idx])
-            bi[idx] = torch.where(upd, take(tid), bi[idx])
+            tidx = idx
+        tests[tidx] += 1
+        ray_tests[tidx] += (~resolved[tidx]).sum(1, dtype=torch.int32)
+        if tidx.numel():
+            _test_cluster(block, tidx, cur_k[tidx], o3, d3, (wx, wy, wz),
+                          itri, imesh, tmax0, cull, any_hit, state)
         nv, nk = _pick(ent, idx)
         if any_hit:
             settle = (bc[idx] >= 0) | (tmax0[idx] <= nv[:, None])
@@ -317,25 +370,91 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit):
             settle = bt[idx] <= nv[:, None]
         res = resolved[idx] | settle
         resolved[idx] = res
-        live[idx] = (nv < INF) & ~res.all(1)
-        cur_v[idx] = nv
+        go = (nv < INF) & ~res.all(1)
+        live[idx] = go
         cur_k[idx] = nk
+        if recull_every:
+            due = go & (trips[idx] % recull_every == 0)
+            if bool(due.any()):
+                # Re-cull from the beam of the unresolved rays only, pruned
+                # at the largest of their caps; consumed clusters stay so.
+                r_ = idx[due]
+                unres = ~resolved[r_]
+                wcap = torch.where(unres, torch.minimum(bt[r_], tmax0[r_]),
+                                   -INF).amax(1)
+                fresh = _entry_bounds(aabb, cl["plane"], finite[r_] & unres,
+                                      tuple(a[r_] for a in o3),
+                                      tuple(a[r_] for a in d3), wcap)
+                e = ent[r_]
+                ent[r_] = torch.where(e == CONSUMED, e, fresh)
 
     if any_hit:
-        return WalkOut(t=torch.where(bc >= 0, 0.0, bt), code=bc)
+        return WalkOut(t=torch.where(bc >= 0, 0.0, bt), code=bc, iters=trips,
+                       tests=tests, ray_tests=ray_tests)
     hit = bc >= 0
-    safe_det = torch.where(hit, bd, 1.0)
+    safe_det = torch.where(hit, state["bd"], 1.0)
+    bi = state["bi"]
+    out = WalkOut(t=bt, code=bc, u=state["bu"] / safe_det,
+                  v=state["bv"] / safe_det, tri=bi, iters=trips, tests=tests,
+                  ray_tests=ray_tests)
+    if not rows:
+        return out
     srow = tri_shade[bi.clamp(min=0)]
     mesh = srow[..., 31].contiguous().view(torch.int32).to(srow.dtype)
-    rows = torch.cat([srow[..., :31], mesh[..., None]], dim=-1)
-    rows = torch.where(hit[..., None], rows, 0.0)
-    return WalkOut(t=bt, code=bc, u=bu / safe_det, v=bv / safe_det, tri=bi,
-                   rows=rows)
+    rows_ = torch.cat([srow[..., :31], mesh[..., None]], dim=-1)
+    return out._replace(rows=torch.where(hit[..., None], rows_, 0.0))
 
 
-def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool):
+def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
+                  any_hit, state):
+    """Test the rays of tiles ``idx`` against clusters ``k`` (one per tile)
+    and update the per-ray best in ``state`` in place."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    wx, wy, wz = w3
+    g = block[k, :GEO_ROWS]  # (m, 18, C)
+    row = lambda i: g[:, i, None, :]  # noqa: E731  (m, 1, C)
+    col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
+    rdx, rdy, rdz = col(dx), col(dy), col(dz)
+    rwx, rwy, rwz = col(wx), col(wy), col(wz)
+    nx, ny, nz = row(0), row(1), row(2)
+    det = rdx * nx + rdy * ny + rdz * nz
+    udet = (rwx * row(6) + rwy * row(7) + rwz * row(8)
+            + rdx * row(3) + rdy * row(4) + rdz * row(5))
+    vdet = (rwx * row(12) + rwy * row(13) + rwz * row(14)
+            + rdx * row(9) + rdy * row(10) + rdz * row(11))
+    tdet = row(15) - (col(ox) * nx + col(oy) * ny + col(oz) * nz)
+    tid = g[:, 16].view(torch.int32)[:, None, :]
+    keep = (tid != col(itri)) & (g[:, 17].view(torch.int32)[:, None, :]
+                                 != col(imesh))
+    bc = state["bc"]
+    if any_hit:
+        ok = keep & det_space_accept_within(det, udet, vdet, tdet,
+                                            col(tmax0), cull)
+        bc[idx] = torch.where(ok.any(2), 0, bc[idx])
+        return
+    ok = keep & det_space_accept(det, udet, vdet, tdet, cull)
+    dist = torch.where(ok, tdet / det, INF)
+    lane = dist.argmin(2, keepdim=True)  # first lane on ties
+    take = lambda q: q.expand_as(dist).gather(2, lane)[..., 0]  # noqa: E731
+    mint = take(dist)
+    bt = state["bt"]
+    upd = mint < bt[idx]
+    code = (k[:, None] * g.shape[2] + lane[..., 0]).to(bc.dtype)
+    bt[idx] = torch.where(upd, mint, bt[idx])
+    bc[idx] = torch.where(upd, code, bc[idx])
+    for name, q in (("bu", udet), ("bv", vdet), ("bd", det), ("bi", tid)):
+        x = state[name]
+        x[idx] = torch.where(upd, take(q), x[idx])
+
+
+def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+               pretest: bool = False, recull_every: int = 0,
+               rows: bool = True):
     """The walk in plain PyTorch, on any device; tiles are independent and
-    run in chunks that bound the pair temporaries."""
+    run in chunks that bound the pair temporaries.  ``rows``: a nearest
+    query also returns the winners' shade rows."""
+    _check_walk_args(cull, recull_every)
     ts = q.tile
     nt = q.origin.shape[0] // ts
     ncg, _, csize = clusters["block"].shape
@@ -348,10 +467,12 @@ def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool):
             clusters, tri_shade,
             q.origin[sl].reshape(m, ts, 3), q.direction[sl].reshape(m, ts, 3),
             q.t_max[sl].reshape(m, ts), q.ignore_tri[sl].reshape(m, ts),
-            q.ignore_mesh[sl].reshape(m, ts), cull, any_hit))
-    return WalkOut(*(None if xs[0] is None else
-                     torch.cat([x.flatten(0, 1) for x in xs])
-                     for xs in zip(*parts)))
+            q.ignore_mesh[sl].reshape(m, ts), cull, any_hit, pretest,
+            recull_every, rows))
+    return WalkOut(*(
+        None if xs[0] is None else
+        torch.cat(xs if name in _PER_TILE else [x.flatten(0, 1) for x in xs])
+        for name, xs in zip(WalkOut._fields, zip(*parts))))
 
 
 # ---- The CUDA kernels -------------------------------------------------------
@@ -359,7 +480,8 @@ def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool):
 
 def _smem_bytes(ncg: int, csize: int) -> int:
     """Dynamic shared memory of one walk block: the entry table and one
-    staged cluster block."""
+    staged cluster block.  The re-cull needs no table of its own: a consumed
+    cluster's entry is marked +inf in place (``CONSUMED``)."""
     return 4 * (ncg + GEO_ROWS * csize)
 
 
@@ -375,11 +497,19 @@ def _check(name, x, dev, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _validate(clusters, tri_shade, q: Query, cull):
+def _check_walk_args(cull, recull_every):
+    if cull not in _CULL_CODE:
+        raise ValueError(
+            f"cull must be True, False or 'reverse', got {cull!r}")
+    if not isinstance(recull_every, int) or recull_every < 0:
+        raise ValueError(f"recull_every must be an int >= 0, got "
+                         f"{recull_every!r}")
+
+
+def _validate(clusters, tri_shade, q: Query, cull, recull_every=0):
     """The checks the kernel's wrapper makes before a launch: every tensor on
     the rays' device, of the kernel's dtype and shape, contiguous."""
-    if cull not in _CULL_CODE:
-        raise ValueError(f"cull must be True, False or 'reverse', got {cull!r}")
+    _check_walk_args(cull, recull_every)
     block = clusters["block"]
     r, ts = q.origin.shape[0], q.tile
     ncg, _, csize = block.shape
@@ -404,18 +534,20 @@ def _validate(clusters, tri_shade, q: Query, cull):
             f"of shared memory per block; the limit is {SMEM_LIMIT}")
 
 
-def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool):
+def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+              pretest: bool = False, recull_every: int = 0,
+              rows: bool = True):
     """Launch the walk kernel of ``csrc/walk.cu`` on the current stream.
 
     Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` (nearest) and
-    ``_fused_kernel`` with ``any_hit=True``; see the source for what bounds
-    it on the card."""
+    ``_fused_kernel`` (any-hit, and nearest with ``pretest`` and
+    ``recull_every``); see the source for what bounds it on the card."""
     from raytpu_torch.kernels.build import load_library
 
     dev = q.origin.device
     if dev.type != "cuda":
         raise ValueError(f"walk_cuda needs CUDA tensors, got {dev}")
-    _validate(clusters, tri_shade, q, cull)
+    _validate(clusters, tri_shade, q, cull, recull_every)
     block, aabb = clusters["block"], clusters["aabb"]
     plane, root = clusters["plane"], clusters["root"]
     r, ts = q.origin.shape[0], q.tile
@@ -425,26 +557,35 @@ def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool):
     p = lambda x: x.data_ptr()  # noqa: E731
     t = torch.empty((r,), dtype=f32, device=dev)
     code = torch.empty((r,), dtype=i32, device=dev)
+    iters = torch.empty((r // ts,), dtype=i32, device=dev)
+    tests = torch.empty((r // ts,), dtype=i32, device=dev)
+    ray_tests = torch.empty((r // ts,), dtype=i32, device=dev)
+    counts = (p(iters), p(tests), p(ray_tests))
     common = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
               p(q.ignore_mesh), r, ts, p(root), p(aabb), p(plane), p(block),
               ncg, csize)
+    walk = (_CULL_CODE[cull], int(pretest), recull_every)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if any_hit:
-            rc = lib.rt_any_hit(*common, _CULL_CODE[cull], p(t), p(code),
+            rc = lib.rt_any_hit(*common, *walk, p(t), p(code), *counts,
                                 stream)
-            out = WalkOut(t=t, code=code)
+            out = WalkOut(t=t, code=code, iters=iters, tests=tests,
+                          ray_tests=ray_tests)
         else:
             u = torch.empty((r,), dtype=f32, device=dev)
             v = torch.empty((r,), dtype=f32, device=dev)
             tri = torch.empty((r,), dtype=i32, device=dev)
-            rows = torch.empty((r, 32), dtype=f32, device=dev)
-            rc = lib.rt_nearest_hit(*common, p(tri_shade), _CULL_CODE[cull],
-                                    p(t), p(code), p(u), p(v), p(tri),
-                                    p(rows), stream)
-            out = WalkOut(t=t, code=code, u=u, v=v, tri=tri, rows=rows)
+            srows = (torch.empty((r, 32), dtype=f32, device=dev) if rows
+                     else None)
+            rc = lib.rt_nearest_hit(*common, p(tri_shade), *walk, p(t),
+                                    p(code), p(u), p(v), p(tri),
+                                    p(srows) if rows else None, *counts,
+                                    stream)
+            out = WalkOut(t=t, code=code, u=u, v=v, tri=tri, rows=srows,
+                          iters=iters, tests=tests, ray_tests=ray_tests)
     if rc != 0:
         raise RuntimeError(
             f"walk kernel launch failed: {lib.rt_error_string(rc).decode()}")
-    LAUNCHES["any_hit" if any_hit else "nearest"] += 1
+    LAUNCHES[kernel_name(any_hit, pretest)] += 1
     return out

@@ -27,10 +27,9 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from raytpu.config import Quantize, RenderConfig, RenderMode
+from raytpu_torch.config import Quantize, RenderConfig, RenderMode
 from raytpu_torch.accel.traverse import nearest_hit
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.core.math3d import normalize, reflect
@@ -46,6 +45,8 @@ class LevelRecord(NamedTuple):
     mask: torch.Tensor  # (R,) valid-hit mask
     a: torch.Tensor  # (R, 3) local emission coefficient
     b: torch.Tensor  # (R, 3) reflection-child weight
+    # (R,) refraction-child weight; only render/instanced.py sets it.
+    c: Optional[torch.Tensor] = None
 
 
 class RaySet(NamedTuple):
@@ -79,9 +80,8 @@ def check_supported(scene: FlatScene, cfg: RenderConfig):
                         "queue 1 item 6 (differentiable rendering)")
     if cfg.cull_prepick:
         raise _unported("cull_prepick", "queue 2 item 1 (prepick walk)")
-    if cfg.cull_pretest or cfg.cull_recull or cfg.cull_chunk > 1:
-        raise _unported("cull_pretest/cull_recull/cull_chunk > 1",
-                        "queue 2 item 2 (walk opt-ins)")
+    if cfg.cull_chunk > 1:
+        raise _unported("cull_chunk > 1", "queue 2 item 2 (walk opt-ins)")
     if cfg.cull_phase1:
         raise _unported("cull_phase1", "queue 2 item 4 (trip budget)")
 
@@ -140,7 +140,12 @@ def _default_query(cfg: RenderConfig):
         return nearest_hit(
             scene, origin, direction, ignore_tri=ignore_tri,
             ignore_mesh=ignore_mesh, cull=cull, intersector=cfg.intersector,
-            cull_tile=cfg.cull_tile, t_max=t_max, any_hit=any_hit,
+            block=cfg.tri_block,
+            brute_force_max_tris=cfg.brute_force_max_tris,
+            cull_tile=cfg.cull_tile, cull_chunk=cfg.cull_chunk,
+            cull_pretest=cfg.cull_pretest, cull_recull=cfg.cull_recull,
+            cull_phase1=cfg.cull_phase1, cull_prepick=cfg.cull_prepick,
+            cull_nbuf=cfg.cull_nbuf, t_max=t_max, any_hit=any_hit,
             with_rows=with_rows)
 
     return query
@@ -296,15 +301,21 @@ def render_rays(scene: FlatScene, cfg: RenderConfig, origin, direction):
     return torch.cat(colors)[:n]
 
 
-def block_order_perm(width: int, height: int, block: int):
-    """Raster indices in square-block-major order.
+def block_order_perm(width: int, height: int, block: int, device):
+    """Raster indices in square-block-major order, an int64 tensor on
+    ``device``: block rows, then blocks, then rows and pixels within a block.
 
     The walk's tiles are consecutive ray runs; square pixel blocks give each
     tile a compact direction cone where scanline runs would give a wide
-    one.  A pure permutation — per-ray results are unchanged."""
-    ys, xs = np.mgrid[0:height, 0:width]
-    ys, xs = ys.ravel(), xs.ravel()
-    return np.lexsort((xs % block, ys % block, xs // block, ys // block))
+    one.  A pure permutation — per-ray results are unchanged.  Built on the
+    device as the argsort of one composed integer key per pixel (a host
+    sort of a 1024² frame's keys costs a quarter of a second)."""
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    nbx = -(-width // block)
+    key = (((ys // block) * nbx + xs // block) * block + ys % block) * block \
+        + xs % block
+    return torch.argsort(key.reshape(-1))
 
 
 def render_image(scene: FlatScene, cfg: RenderConfig,
@@ -319,8 +330,7 @@ def render_image(scene: FlatScene, cfg: RenderConfig,
     camera = camera or Camera(aspect=cfg.width / cfg.height)
     o, d = camera_rays(camera, cfg.width, cfg.height, device=scene.device)
     block = max(1, int(cfg.cull_tile ** 0.5))
-    perm = torch.as_tensor(block_order_perm(cfg.width, cfg.height, block),
-                           device=scene.device)
+    perm = block_order_perm(cfg.width, cfg.height, block, scene.device)
     colors = render_rays(scene, cfg, o[perm], d[perm])
     out = torch.empty_like(colors)
     out[perm] = colors

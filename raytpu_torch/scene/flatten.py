@@ -1,4 +1,4 @@
-"""Scene → FlatScene baking (host-side NumPy, then tensors on the CPU).
+"""Scene → FlatScene baking (host-side NumPy, then tensors on a device).
 
 Instance transforms are applied to vertices (world matrix) and vertex
 normals (inverse-transpose, normalized — TracerModelProcessor.cs:190-197);
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from raytpu_torch.accel.clusters import build_clusters
+from raytpu_torch.device import resolve
 from raytpu_torch.scene import lights as lights_mod
 from raytpu_torch.scene.types import FlatScene, Scene
 
@@ -24,8 +25,11 @@ def _transform_points(p: np.ndarray, m: np.ndarray) -> np.ndarray:
 MAX_LIGHTS = 4  # light slots of the packed table, as in the reference bake
 
 
-def flatten_scene(scene: Scene, cluster_size: int = 128) -> FlatScene:
-    """Bake ``scene`` into a FlatScene on the CPU (``.to(device)`` moves it)."""
+def flatten_scene(scene: Scene, cluster_size: int = 128,
+                  device="cuda") -> FlatScene:
+    """Bake ``scene`` into a FlatScene on ``device`` (the card unless the
+    caller names another; with no card the default raises)."""
+    dev = resolve(device)
     tri_v = []
     tri_n = []
     tri_uv = []
@@ -137,7 +141,7 @@ def flatten_scene(scene: Scene, cluster_size: int = 128) -> FlatScene:
     shade[:, 27:31] = color
     shade[:, 31] = mesh_idx.view(np.float32)
 
-    t_ = torch.from_numpy
+    t_ = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     cl = clusters.as_device_arrays(v[:, 0], e1, e2, mesh_idx)
     return FlatScene(
         tri_shade=t_(shade),
@@ -146,6 +150,10 @@ def flatten_scene(scene: Scene, cluster_size: int = 128) -> FlatScene:
         mesh_convex=t_(np.asarray(mesh_convex, bool)),
         mat_reflect=t_(np.asarray([m.reflectiveness for m in materials],
                                   np.float32)),
+        mat_transparent=t_(np.asarray([m.transparent for m in materials],
+                                      bool)),
+        mat_refraction=t_(np.asarray(
+            [m.refraction_index for m in materials], np.float32)),
         mat_use_texture=t_(np.asarray([m.use_texture for m in materials],
                                       bool)),
         mat_interp_normals=t_(np.asarray(

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytpu.config import TextureFiltering, UVAddressMode
+from raytpu_torch.config import TextureFiltering, UVAddressMode
 
 BYTE_RECIPROCAL = float(np.float32(1.0 / 255.0))
 

@@ -88,6 +88,8 @@ class Scene:
     lights: List[Any] = dataclasses.field(default_factory=list)
 
     def flatten(self, **kw) -> "FlatScene":
+        """``scene/flatten.py::flatten_scene``: on the card unless ``device``
+        names another."""
         from raytpu_torch.scene.flatten import flatten_scene
 
         return flatten_scene(self, **kw)
@@ -108,6 +110,8 @@ class FlatScene:
     mesh_material: torch.Tensor  # (M,) int32
     mesh_convex: torch.Tensor  # (M,) bool
     mat_reflect: torch.Tensor  # (K,) f32
+    mat_transparent: torch.Tensor  # (K,) bool
+    mat_refraction: torch.Tensor  # (K,) f32 refraction index
     mat_use_texture: torch.Tensor  # (K,) bool
     mat_interp_normals: torch.Tensor  # (K,) bool
     mat_texture: torch.Tensor  # (K,) int32, -1 = none

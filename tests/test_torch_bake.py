@@ -27,7 +27,7 @@ SCENES = {
 def baked(request):
     build, csize = SCENES[request.param]
     jflat = jax_bake(build("jax"), csize)
-    return jflat, build("torch").flatten(cluster_size=csize)
+    return jflat, build("torch").flatten(device="cpu", cluster_size=csize)
 
 
 def _bits(a):
@@ -103,8 +103,20 @@ def test_bridge_rejects_out_of_range_ids():
     arrays["clusters"]["block"][0, 16, 0] = np.int32(
         jflat.num_tris).view(np.float32)
     with pytest.raises(ValueError, match="out of range"):
-        flat_scene_from_numpy(arrays, meta)
+        flat_scene_from_numpy(arrays, meta, device="cpu")
     arrays["clusters"] = jax_arrays(jax_bake(sphere_and_plane("jax"), 64))[0][
         "clusters"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flat_scene_from_numpy(arrays, meta)
+        flat_scene_from_numpy(arrays, meta, device="cpu")
+
+
+def test_aabb_table_is_block_rows_18_to_23(baked):
+    """The walk's pretest reads a cluster's box from the ``aabb`` table; the
+    reference's kernel reads it from block rows 18-23 of the staged block
+    (the box broadcast across lanes).  The two are the same values, in the
+    port's bake and in the bridged reference bake."""
+    jflat, pflat = baked
+    for scene in (pflat, to_port(jflat)):
+        block, aabb = scene.clusters["block"], scene.clusters["aabb"]
+        rows = block[:, 18:24, :]
+        assert torch.equal(rows, aabb.t()[:, :, None].expand_as(rows))

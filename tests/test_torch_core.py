@@ -58,7 +58,7 @@ def test_camera_rays(position, size):
         lambda: (jc.view(), jc.projection(), jcamera.camera_rays(jc, w, h)))()
     np.testing.assert_array_equal(tc.view().numpy(), np.asarray(jview))
     np.testing.assert_array_equal(tc.projection().numpy(), np.asarray(jproj))
-    to, td = tcamera.camera_rays(tc, w, h)
+    to, td = tcamera.camera_rays(tc, w, h, device="cpu")
     close(to, jo)
     # Directions: both packages invert view @ proj in float32, through
     # different LAPACK/BLAS routines (getrf+trsm in JAX, getrf+getri in
@@ -170,20 +170,21 @@ def test_texture_lookup(mode, filtering):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with JAX and flax made
-    unimportable."""
+    """Every module of the port imports with JAX, flax, optax and the JAX
+    package made unimportable."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "raytpu_torch").rglob("*.py"))
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'raytpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = [m for m, v in sys.modules.items()\n"
-        "       if v is not None and m.split('.')[0] in ('jax', 'jaxlib', 'flax')]\n"
+        "       if v is not None and m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'raytpu')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

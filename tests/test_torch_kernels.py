@@ -20,10 +20,12 @@ import torch
 
 from raytpu.accel import traverse
 from raytpu.kernels import fused as jfused
+from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.kernels import fused
 from raytpu_torch.kernels.fused import nearest_hit_fused
+from raytpu_torch.render.wavefront import block_order_perm
 from tests.torch_scenes import jax_bake, random_rays, sphere_and_plane, t
-from tests.torch_scenes import to_port
+from tests.torch_scenes import terrain, to_port
 
 torch.set_num_threads(1)
 
@@ -271,3 +273,131 @@ def test_pack_query_pads_whole_tiles():
     assert (q.t_max[70:] == 0).all() and (q.ignore_tri == -1).all()
     small = fused.pack_query(t(o[:5]), t(d[:5]), tile_size=32)
     assert small.tile == 5 and small.origin.shape == (5, 3)
+
+
+class TestWalkOptIns:
+    """The walk's slab pretest and re-cull (``pretest``, ``recull_every``),
+    against tests/test_accel.py::TestFusedKernelFlags' reference: the
+    interpret-mode ``_fused_kernel`` with the same flags, csize 16, 96 rays,
+    tiles of 32.  Same tolerances as above."""
+
+    @pytest.fixture(scope="class")
+    def scenes(self):
+        jflat = jax_bake(sphere_and_plane("jax"), 16)
+        return jflat, to_port(jflat)
+
+    @pytest.mark.parametrize("any_hit,pretest,recull", [
+        (False, True, 6), (False, False, 2), (True, True, 2)])
+    def test_match_interpret_kernel(self, scenes, any_hit, pretest, recull):
+        jflat, pflat = scenes
+        o, d = random_rays(11, 96)
+        o[5, 1] = np.nan
+        tmax = np.full((96,), 18.0, np.float32) if any_hit else None
+        kw = dict(tile_size=32, any_hit=any_hit, pretest=pretest,
+                  recull_every=recull)
+        ref = jax_fused(jflat, jnp.asarray(o), jnp.asarray(d), interpret=True,
+                        t_max=None if tmax is None else jnp.asarray(tmax),
+                        **kw)
+        ph, iters = nearest_hit_fused(pflat, t(o), t(d), return_iters=True,
+                                      t_max=None if tmax is None else t(tmax),
+                                      **kw)
+        assert iters.dtype == torch.int32 and iters.shape == (3,)
+        assert bool((iters > 0).all())
+        if any_hit:
+            np.testing.assert_array_equal(ph.hit.numpy(), np.asarray(ref.hit))
+            assert ph.hit.any() and not ph.hit.all()
+            np.testing.assert_array_equal(ph.t.numpy(), np.asarray(ref.t))
+            return
+        _assert_nearest(ph, ref)
+        hit = ph.hit.numpy()
+        for f in ("u", "v"):
+            np.testing.assert_allclose(getattr(ph, f).numpy()[hit],
+                                       np.asarray(getattr(ref, f))[hit],
+                                       rtol=1e-6, atol=1e-6)
+
+    def test_same_hits_with_and_without(self):
+        """The opt-ins change the walk's shape (fewer tested clusters, fewer
+        trips) and nothing else: every output of the plain walk bit for
+        bit, on a terrain seen by a camera (coherent tiles, where the
+        re-cull and the pretest have work to do) and on random rays."""
+        flat = terrain("torch", divisions=32).flatten(device="cpu",
+                                                      cluster_size=16)
+        o, d = camera_rays(Camera(position=(0.0, 28.0, 34.0)), 48, 48,
+                           device="cpu")
+        perm = block_order_perm(48, 48, 8, "cpu")
+        ro, rd = random_rays(12, 256)
+        o = torch.cat([o[perm], t(ro)])
+        d = torch.cat([d[perm], t(rd)])
+        tmax = t(np.random.default_rng(3).uniform(5.0, 60.0, o.shape[0])
+                 .astype(np.float32))
+        shapes = []
+        for any_hit in (False, True):
+            q = fused.pack_query(o, d, t_max=tmax if any_hit else None,
+                                 tile_size=64)
+            walk = functools.partial(fused.walk_plain, flat.clusters,
+                                     flat.tri_shade, q, cull=True,
+                                     any_hit=any_hit)
+            base = walk()
+            for pretest, recull in ((True, 0), (False, 1), (False, 2),
+                                    (True, 6)):
+                out = walk(pretest=pretest, recull_every=recull)
+                for f in ("t", "code", "u", "v", "tri", "rows"):
+                    a, b = getattr(out, f), getattr(base, f)
+                    assert (a is None) == (b is None), f
+                    if a is not None:
+                        assert torch.equal(a.view(torch.int32)
+                                           if a.dtype == torch.float32
+                                           else a,
+                                           b.view(torch.int32)
+                                           if b.dtype == torch.float32
+                                           else b), (f, pretest, recull)
+                assert bool((out.tests <= out.iters).all())
+                # Every tested cluster has an unresolved ray of its tile.
+                assert bool((out.tests <= out.ray_tests).all())
+                assert bool((out.ray_tests <= out.tests * 64).all())
+                shapes.append((int(out.iters.sum()), int(out.tests.sum()),
+                               int(base.iters.sum())))
+        # The pretest skips clusters and the re-cull cuts trips somewhere.
+        assert any(tests < trips for trips, tests, _ in shapes)
+        assert any(trips < base for trips, _, base in shapes)
+
+    def test_recull_entries_never_drop(self):
+        """A sub-beam's entry bounds are never below the beam's, in float
+        arithmetic: a re-culled entry is never below the pick consumed
+        before it, so picks stay in non-decreasing order."""
+        flat = sphere_and_plane("torch").flatten(device="cpu",
+                                                 cluster_size=16)
+        cl = flat.clusters
+        rng = np.random.default_rng(13)
+        o, d = (t(a).reshape(16, 32, 3) for a in random_rays(13, 512))
+        o3, d3 = o.unbind(-1), d.unbind(-1)
+        full = torch.ones((16, 32), dtype=torch.bool)
+        wcap = torch.full((16,), 1e4)
+        ent = fused._entry_bounds(cl["aabb"], cl["plane"], full, o3, d3, wcap)
+        assert bool((ent < fused.INF).any())
+        for _ in range(8):
+            sub = t(rng.random((16, 32)) < rng.uniform(0.05, 0.9))
+            cap = t(rng.uniform(1.0, 1e4, 16).astype(np.float32))
+            fresh = fused._entry_bounds(cl["aabb"], cl["plane"], sub, o3, d3,
+                                        cap)
+            assert bool((fresh >= ent).all())
+
+
+def test_dead_ray_nan_bound_does_not_poison_its_tile():
+    """A ray with a NaN t bound and a NaN direction (a dead lane of the
+    instanced renderer's shadow queries) is resolved from the start; the
+    other rays of its tile get the brute-force answer.  (The reference's
+    fused kernel takes the tile's bound as a NaN-propagating max, so such a
+    tile finds nothing there: ROADMAP.md queue 3.)"""
+    jflat = jax_bake(sphere_and_plane("jax"), 16)
+    pflat = to_port(jflat)
+    o, d = random_rays(14, 32)
+    tmax = np.full((32,), 30.0, np.float32)
+    d[3] = np.nan
+    tmax[3] = np.nan
+    brute = nearest_hit_brute(jflat, jnp.asarray(o), jnp.asarray(d),
+                              t_max=jnp.asarray(tmax), block=128)
+    ph = nearest_hit_fused(pflat, t(o), t(d), t_max=t(tmax), tile_size=32,
+                           pretest=True, recull_every=6)
+    assert bool(np.asarray(brute.hit).sum() > 4) and not bool(ph.hit[3])
+    _assert_nearest(ph, brute, rtol=1e-5)

@@ -58,7 +58,7 @@ def rendered(request):
     # after ~150 compiles, run_tests.py).
     o, d = jax.jit(lambda: jax_camera_rays(JaxCamera(position=position),
                                            32, 32))()
-    perm = block_order_perm(32, 32, 16)
+    perm = block_order_perm(32, 32, 16, "cpu").numpy()
     o, d = np.asarray(o)[perm], np.asarray(d)[perm]
     ref = np.asarray(jax.jit(lambda s, o, d: jax_render_rays(s, cfg, o, d))(
         jflat, o, d))
@@ -77,11 +77,11 @@ def test_render_matches_reference(rendered):
 def test_render_image_is_render_rays_in_block_order(rendered):
     name, cfg, position, _, _, _ = rendered
     build, csize, _, _ = CASES[name]
-    flat = build("torch").flatten(cluster_size=csize)
+    flat = build("torch").flatten(device="cpu", cluster_size=csize)
     cam = Camera(position=position)
     img = render_image(flat, cfg, cam)
-    o, d = camera_rays(cam, 32, 32)
-    perm = torch.as_tensor(block_order_perm(32, 32, 16))
+    o, d = camera_rays(cam, 32, 32, device="cpu")
+    perm = block_order_perm(32, 32, 16, "cpu")
     colors = render_rays(flat, cfg, o[perm], d[perm])
     assert img.shape == (32, 32, 3)
     assert torch.equal(img.reshape(-1, 3)[perm], colors)
@@ -92,11 +92,21 @@ def test_own_bake_renders_like_bridge(rendered):
     Quantize.FINAL rounds them."""
     name, cfg, _, (o, d), _, colors = rendered
     build, csize, _, _ = CASES[name]
-    flat = build("torch").flatten(cluster_size=csize)
+    flat = build("torch").flatten(device="cpu", cluster_size=csize)
     assert torch.equal(render_rays(flat, cfg, o, d), colors)
     final = render_rays(flat, dataclasses.replace(cfg, quantize=Quantize.FINAL),
                         o, d)
     assert torch.equal(final, quantize_color(colors))
+
+
+def test_walk_opt_ins_render_the_same_image(rendered):
+    """``cull_pretest`` and ``cull_recull`` change the walk's shape, never
+    its hits: the same colors bit for bit."""
+    name, cfg, _, (o, d), _, colors = rendered
+    build, csize, _, _ = CASES[name]
+    flat = build("torch").flatten(device="cpu", cluster_size=csize)
+    opt = dataclasses.replace(cfg, cull_pretest=True, cull_recull=2)
+    assert torch.equal(render_rays(flat, opt, o, d), colors)
 
 
 @pytest.mark.parametrize("change", [
@@ -106,25 +116,27 @@ def test_own_bake_renders_like_bridge(rendered):
     dict(shadow_clearance=True),
     dict(intersector=Intersector.BRUTE),
     dict(intersector=Intersector.TILED),
-    dict(cull_pretest=True),
-    dict(cull_recull=2),
+    dict(intersector=Intersector.OCTREE),
+    dict(cull_nbuf=2),
     dict(cull_chunk=2),
     dict(cull_phase1=4),
     dict(cull_prepick=8),
+    dict(tri_block=1024),
+    dict(brute_force_max_tris=0),
 ])
 def test_unported_config_raises(change):
-    flat = sphere_and_plane("torch").flatten(cluster_size=16)
+    flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(flat, dataclasses.replace(CFG, **change))
 
 
 def test_unported_scene_and_entry_points_raise():
     glass = sphere_and_plane("torch", transparent=True).flatten(
-        cluster_size=16)
+        device="cpu", cluster_size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(glass, CFG)
-    flat = sphere_and_plane("torch").flatten(cluster_size=16)
+    flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(flat, CFG, progress=lambda done, total: None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sphere_and_plane("torch").flatten(cluster_size=64)
+        sphere_and_plane("torch").flatten(device="cpu", cluster_size=64)

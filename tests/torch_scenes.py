@@ -9,7 +9,8 @@ import torch
 from raytpu.scene import lights as jlights
 from raytpu.scene import procedural as jproc
 from raytpu.scene import types as jtypes
-from raytpu_torch.bridge import META, TABLES, flat_scene_from_numpy
+from raytpu_torch.bridge import (META, TABLES, flat_scene_from_numpy,
+                                 instanced_scene_from_numpy)
 from raytpu_torch.scene import lights as tlights
 from raytpu_torch.scene import procedural as tproc
 from raytpu_torch.scene import types as ttypes
@@ -68,6 +69,30 @@ def terrain(pkg: str, divisions: int = 24):
                                  direction=(0.0, -0.7682213, -0.6401844))])
 
 
+def instanced_scene(pkg: str, reflect=0.4, transparent=False):
+    """tests/test_instanced_render.py::_scene, built with ``pkg``'s types:
+    two instances of ONE sphere mesh (moved, scaled, rotated) over a
+    textured ground plane, one spot light."""
+    types, proc, lights = PACKAGES[pkg]
+    mat = types.Material(
+        reflectiveness=reflect, transparent=transparent,
+        refraction_index=1.32,
+        diffuse_color=(0.8, 0.2, 0.2, 0.6 if transparent else 1.0))
+    sphere = proc.uv_sphere(radius=2.0, stacks=8, slices=12, material=mat)
+    ground = types.Material(use_texture=True, texture=checker_texture(),
+                            reflectiveness=0.0)
+    return types.Scene(
+        objects=[
+            types.SceneObject(meshes=[sphere], position=(-3.0, 2.0, 0.0)),
+            types.SceneObject(meshes=[sphere], position=(3.5, 3.0, -2.0),
+                              scale=(1.5, 1.5, 1.5), rotation=(0.0, 0.8, 0.0)),
+            types.SceneObject(meshes=[proc.plane(size=(40.0, 40.0),
+                                                 material=ground)]),
+        ],
+        lights=[lights.SpotLight(position=(0.0, 5.0, 20.0),
+                                 direction=(0.0, -0.2425356, -0.9701425))])
+
+
 def jax_bake(scene, cluster_size):
     return scene.flatten(build_octree=False, cluster_size=cluster_size)
 
@@ -83,7 +108,21 @@ def jax_arrays(jflat):
 
 def to_port(jflat):
     """The port's FlatScene of a JAX FlatScene, through the bridge."""
-    return flat_scene_from_numpy(*jax_arrays(jflat))
+    return flat_scene_from_numpy(*jax_arrays(jflat), device="cpu")
+
+
+def jax_instanced_arrays(jisc):
+    """A JAX InstancedScene as the instanced bridge's arguments."""
+    return ([jax_arrays(b) for b in jisc.bakes],
+            [(i.mesh_index, i.world, i.inv_world) for i in jisc.instances],
+            {k: np.asarray(v) for k, v in jisc.lights.items()},
+            jisc.num_lights)
+
+
+def to_port_instanced(jisc):
+    """The port's InstancedScene of a JAX one, through the bridge."""
+    return instanced_scene_from_numpy(*jax_instanced_arrays(jisc),
+                                      device="cpu")
 
 
 def random_rays(seed: int, n: int):
