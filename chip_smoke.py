@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's render paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render and fit paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -6,10 +6,12 @@ Phases, each printing its lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: compile the walk kernels (``raytpu_torch/kernels/csrc/walk.cu``);
-3. small: every walk kernel variant against the plain PyTorch walk, bit for
-   bit, trip counts included (nearest and any-hit; pretest on and off;
-   re-cull every 0, 2 and 6 trips; cluster sizes 16 and 128; ignore ids,
-   t bounds, NaN bounds and non-finite rays), and small renders, baked and
+3. small: every walk kernel variant against its plain PyTorch version, bit
+   for bit, trip counts and resolved flags included (nearest and any-hit;
+   pretest on and off; re-cull every 0, 2 and 6 trips; the prepick walk
+   with 2, 3 and 64 picks; trip budgets 1 and 4; cluster sizes 16 and 128;
+   ignore ids, t bounds, NaN bounds and non-finite rays), the overflow
+   strategies on the card against the CPU, and small renders, baked and
    instanced, on the card against the CPU;
 4. frame: bench.py's ~1M-triangle terrain at 1024x1024 through
    ``render_rays`` with its launch counters checked, then the frame's
@@ -22,13 +24,24 @@ Phases, each printing its lines:
 6. pretest frame: the bench frame with ``cull_pretest=True,
    cull_recull=6``, counters checked, the image equal to the default
    frame's, its queries through the kernels and the plain walk;
-7. times: ms per frame and rays/s (bench frame, default and pretest, in
-   turns; instanced frame, counting every query's live rays, with the
-   walk's defaults and with the re-cull, the pretest or both turned off)
-   and ms per walk call, kernels against the plain walk;
-8. profile: the bench frame's spread and torch.profiler breakdown, and the
-   instanced frame's device ms per kernel variant, busy share and the host
-   syncs of its per-instance pass skips.
+7. overflow: the bench frame with ``cull_prepick`` 64 and 8 and
+   ``cull_phase1`` 2 and 8: the bounded walk's counter and, where the
+   budget overflows, the finishing walk's (the rescue, phase 2) checked,
+   the image equal to the default frame's, every walk call against its
+   plain version;
+8. fit: bench.py's backward workload (512x512 gradient steps on the
+   terrain, geometry, then the textured terrain's atlas, bilinear) with
+   step times, backward rays/s and a step's split; a 6-step Adam fit with
+   re-bakes from a height-scaled terrain; card against CPU gradients on a
+   small scene;
+9. times: ms per frame and rays/s (bench frame by walk setting, in turns;
+   instanced frame, counting every query's live rays, with the walk's
+   defaults, with the re-cull, the pretest or both turned off, and with
+   the overflow strategies), ms per walk call, kernels against the plain walk,
+   and the overflow strategies' calls with their bounds and overflow shares;
+10. profile: the bench frame's spread and torch.profiler breakdown, and the
+    instanced frame's device ms per kernel variant, busy share and the
+    host syncs of its per-instance pass skips.
 
 Then one JSON line with the kernels (time, plain time, launches, trips per
 tile and the least time the card could take for the same work) and, last,
@@ -91,6 +104,33 @@ OPS_PRETEST = 27
 INSTANCED_WALKS = (("cull_recull=0", {"cull_recull": 0}),
                    ("cull_pretest=False", {"cull_pretest": False}),
                    ("both off", {"cull_pretest": False, "cull_recull": 0}))
+# The overflow strategies' settings: picks per tile (7,811 = every cluster of
+# the bench bake) and phase-1 trip budgets.  The prepick walk refuses the
+# pretest and the re-cull, so its instanced turns turn them off.
+OVERFLOW_SETTINGS = (("cull_prepick=64", {"cull_prepick": 64}),
+                     ("cull_prepick=8", {"cull_prepick": 8}),
+                     ("cull_phase1=2", {"cull_phase1": 2}),
+                     ("cull_phase1=8", {"cull_phase1": 8}))
+# Settings whose finishing walk (the rescue or phase 2) must run on the
+# bench frame: 8 picks and 2 or 8 trips are below its tiles' deepest walks.
+MUST_FINISH = ("cull_prepick=8", "cull_phase1=2", "cull_phase1=8")
+TIMED_OVERFLOW = (("cull_prepick=64", {"cull_prepick": 64}),
+                  ("cull_prepick=7811", {"cull_prepick": 7811}),
+                  ("cull_phase1=2", {"cull_phase1": 2}),
+                  ("cull_phase1=8", {"cull_phase1": 8}))
+NO_OPT_INS = {"cull_pretest": False, "cull_recull": 0}
+# The fit workload: bench.py's backward resolution and timed steps; the
+# Adam fit's steps, re-bake period, height scale and learning rate.
+FIT_RES = 512
+FIT_STEPS = 3
+FIT_ADAM_STEPS = 6
+FIT_REBUILD = 3
+FIT_HEIGHT_SCALE = 1.03
+FIT_LR = 1e-4
+# Card against CPU gradients: index_add_ sums a row's cotangents in another
+# order on the card (atomics), so they agree to rounding, not bit for bit.
+FIT_RTOL = 1e-4
+FIT_ATOL = 1e-6
 
 
 def _bits_equal(a, b):
@@ -135,6 +175,16 @@ def _once_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def _walks(walk):
+    """The kernel and the plain version of the walk that the options
+    ``walk`` name: the prepick walk when they give ``picks``."""
+    from raytpu_torch.kernels import fused
+
+    if "picks" in walk:
+        return fused.prepick_cuda, fused.prepick_plain
+    return fused.walk_cuda, fused.walk_plain
+
+
 def reset_launches():
     from raytpu_torch.kernels import fused
 
@@ -151,14 +201,13 @@ def read_launches():
 
 def compare_walks(clusters, tri_shade, q, what, record, got=None, **walk):
     """The kernel (``got``, or a fresh launch) and the plain walk on the
-    same padded query; raises unless every output, trip counts included,
-    agrees bit for bit.  Returns (max abs difference, plain walk ms)."""
-    from raytpu_torch.kernels.fused import walk_cuda, walk_plain
-
+    same padded query; raises unless every output, trip counts and
+    resolved flags included, agrees bit for bit.  Returns (max abs
+    difference, plain walk ms)."""
+    kernel, plain = _walks(walk)
     if got is None:
-        got = walk_cuda(clusters, tri_shade, q, **walk)
-    ref, plain_ms = _once_ms(lambda: walk_plain(clusters, tri_shade, q,
-                                                **walk))
+        got = kernel(clusters, tri_shade, q, **walk)
+    ref, plain_ms = _once_ms(lambda: plain(clusters, tri_shade, q, **walk))
     err, bad = 0.0, []
     for field in got._fields:
         a, b = getattr(got, field), getattr(ref, field)
@@ -176,15 +225,18 @@ def compare_walks(clusters, tri_shade, q, what, record, got=None, **walk):
             bad.append(f"{field}: {int(diff.sum())} differ, first "
                        f"{rows.tolist()}")
     hits = int((got.code >= 0).sum())
+    unresolved = int((got.resolved == 0).sum())
     trips = got.iters.float()
     rec = {"what": what, "walk": {k: str(v) for k, v in walk.items()},
-           "rays": int(q.origin.shape[0]), "hits": hits, "max_abs_err": err,
+           "rays": int(q.origin.shape[0]), "hits": hits,
+           "unresolved": unresolved, "max_abs_err": err,
            "trips_mean": float(trips.mean()), "trips_max": int(trips.max()),
            "tests_mean": float(got.tests.float().mean()),
            "ray_tests_mean": float(got.ray_tests.float().mean()),
            "plain_ms": plain_ms, "mismatch": bad}
     record.append(rec)
-    print(f"  {what}: {walk} rays={q.origin.shape[0]} hits={hits} trips "
+    print(f"  {what}: {walk} rays={q.origin.shape[0]} hits={hits} "
+          f"unresolved={unresolved} trips "
           f"mean {rec['trips_mean']:.2f} max {rec['trips_max']} tested "
           f"{rec['tests_mean']:.2f} ray tests {rec['ray_tests_mean']:.1f}, "
           f"plain walk {plain_ms:.0f} ms, "
@@ -205,7 +257,7 @@ def walk_bound(q, out, ncg, csize, walk):
     ``overhead_ops`` and are not part of the bound."""
     any_hit, pretest = walk["any_hit"], walk.get("pretest", False)
     recull = walk.get("recull_every", 0)
-    rows = walk.get("rows", True) and not any_hit
+    rows = walk.get("rows", "picks" not in walk) and not any_hit
     ts = q.tile
     r, nt = q.origin.shape[0], q.origin.shape[0] // ts
     live = (torch.isfinite(q.origin).all(-1)
@@ -218,8 +270,8 @@ def walk_bound(q, out, ncg, csize, walk):
     overhead = float((trips * ncg * OPS_PICK
                       + (live > 0) * (1 + reculls) * ncg * OPS_ENTRY
                       + (trips * live * OPS_PRETEST if pretest else 0)).sum())
-    nbytes = (r * 36 + ncg * (6 + 5 + 18 * csize) * 4 + 32 + nt * 8
-              + r * (8 if any_hit else 20))
+    nbytes = (r * 36 + ncg * (6 + 5 + 18 * csize) * 4 + 32 + nt * 12
+              + r * (12 if any_hit else 24))
     if rows:
         nbytes += r * 128 + int((out.code >= 0).sum()) * 128
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -306,20 +358,25 @@ def _small_instanced_scene(reflect, transparent):
 SMALL_WALKS = [(a, p, r) for a in (False, True)
                for p, r in ((False, 0), (True, 0), (False, 2), (True, 2),
                             (True, 6))]
+# Budgets of the small overflow comparisons: the prepick walk's picks and
+# the classic walk's trip budget, small enough to overflow and not.
+SMALL_PICKS = (2, 3, 64)
+SMALL_TRIPS = (1, 4)
 
 
 def phase_small(dev, record):
     from raytpu_torch import Quantize, RenderConfig
     from raytpu_torch.core.camera import Camera
-    from raytpu_torch.kernels.fused import kernel_name, pack_query
+    from raytpu_torch.kernels.fused import (kernel_name, nearest_hit_fused,
+                                            pack_query)
     from raytpu_torch.render.instanced import (flatten_instanced,
                                                render_image_instanced)
     from raytpu_torch.render.wavefront import render_image
 
     err = {}
 
-    def note(any_hit, pretest, e):
-        name = kernel_name(any_hit, pretest)
+    def note(any_hit, pretest, e, budget=False, prepick=False):
+        name = kernel_name(any_hit, pretest, budget, prepick)
         err[name] = max(err.get(name, 0.0), e)
 
     rng = np.random.default_rng(0)
@@ -363,6 +420,45 @@ def phase_small(dev, record):
             note(any_hit, pretest, compare_walks(
                 *tables, q, what + " ignore_tri t_max", record, cull=True,
                 any_hit=any_hit, pretest=pretest, recull_every=recull)[0])
+        # The bounded walks, flags included: the prepick walk and the
+        # classic walk on a trip budget.
+        for any_hit in (False, True):
+            q = pack_query(o_t, d_t, ignore_tri=itri,
+                           t_max=tmax if any_hit else None,
+                           tile_size=RAYS_PER_TILE)
+            for picks in SMALL_PICKS:
+                note(any_hit, False, compare_walks(
+                    *tables, q, what + " prepick", record, cull=True,
+                    any_hit=any_hit, picks=picks)[0], prepick=True)
+            for trips in SMALL_TRIPS:
+                for pretest, recull in ((False, 0), (True, 2)):
+                    note(any_hit, pretest, compare_walks(
+                        *tables, q, what + " max_trips", record, cull=True,
+                        any_hit=any_hit, pretest=pretest,
+                        recull_every=recull, max_trips=trips)[0],
+                        budget=True)
+        # The overflow strategies (rescue pass, phase 1 and 2) on the card against the
+        # CPU: the same hits bit for bit.
+        cpu = scene.to("cpu")
+        for any_hit in (False, True):
+            args = dict(ignore_tri=itri, t_max=tmax if any_hit else None,
+                        any_hit=any_hit, tile_size=RAYS_PER_TILE)
+            for strategy in ({"prepick": 2}, {"prepick": 64},
+                           {"phase1_trips": 1}, {"phase1_trips": 4}):
+                got, it = nearest_hit_fused(scene, o_t, d_t, **args, **strategy,
+                                            return_iters=True)
+                ref, it_ref = nearest_hit_fused(
+                    cpu, o_t.cpu(), d_t.cpu(), return_iters=True, **strategy,
+                    **{k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in args.items()})
+                same = all(_bits_equal(getattr(got, f).cpu(),
+                                       getattr(ref, f)) for f in got._fields)
+                print(f"  {what} {strategy} any_hit={any_hit}: hits "
+                      f"{int(got.hit.sum())}, trips {int(it.sum())}, card "
+                      f"and CPU {'bitwise equal' if same else 'DIFFER'}")
+                if not same or not torch.equal(it.cpu(), it_ref):
+                    raise AssertionError(f"{what} {strategy}: the card "
+                                         "differs from the CPU")
 
     cfg = RenderConfig(width=64, height=64, max_reflections=2,
                        quantize=Quantize.NONE, tile_pixels=64 * 64)
@@ -392,19 +488,29 @@ def _card_vs_cpu(what, gpu, cpu, record):
     record.append({"what": what + " card vs cpu", "max_abs_diff": diff})
 
 
-def bench_scene(n_tris, reflect=0.0):
-    """bench.py::build_scene with the port's bake (same mesh and light)."""
+def bench_scene(n_tris, reflect=0.0, textured=False, height_scale=1.0):
+    """bench.py::build_scene with the port's bake (same mesh and light;
+    ``textured``: its 128x128 checker atlas with uv_scale 4).
+    ``height_scale`` scales the height field."""
     from raytpu_torch.scene.lights import SpotLight
     from raytpu_torch.scene.procedural import subdivided_plane
     from raytpu_torch.scene.types import Material, Scene, SceneObject
 
-    mat = Material(reflectiveness=reflect,
+    tex = None
+    if textured:
+        yy, xx = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+        checker = (((xx // 8) + (yy // 8)) % 2).astype(np.uint8)
+        tex = np.stack([checker * 180 + 40, checker * 120 + 60,
+                        np.full_like(checker, 90)], axis=-1).astype(np.uint8)
+    mat = Material(reflectiveness=reflect, use_texture=textured, texture=tex,
                    diffuse_color=(0.7, 0.6, 0.5, 1.0))
     divisions = max(8, int(round((n_tris / 2) ** 0.5)))
     mesh = subdivided_plane(
         size=(40.0, 40.0), divisions=divisions, material=mat,
-        height_fn=lambda x, z: 2.0 * np.sin(x * 0.7) * np.cos(z * 0.7)
-        + 0.5 * np.sin(x * 3.1) * np.sin(z * 2.3))
+        uv_scale=4.0 if textured else 1.0,
+        height_fn=lambda x, z: height_scale * (
+            2.0 * np.sin(x * 0.7) * np.cos(z * 0.7)
+            + 0.5 * np.sin(x * 3.1) * np.sin(z * 2.3)))
     return Scene(objects=[SceneObject(meshes=[mesh])],
                  lights=[SpotLight(position=(0.0, 30.0, 25.0),
                                    direction=(0.0, -0.7682213, -0.6401844))])
@@ -453,22 +559,28 @@ def plain_query(cfg):
 
 @contextlib.contextmanager
 def recording_walks():
-    """Every ``walk_cuda`` call made inside: (clusters, tri_shade, query,
-    options, output)."""
+    """Every ``walk_cuda`` and ``prepick_cuda`` call made inside:
+    (clusters, tri_shade, query, options, output), in launch order."""
     from raytpu_torch.kernels import fused
 
-    calls, launch = [], fused.walk_cuda
+    calls = []
+    launchers = {"walk_cuda": fused.walk_cuda,
+                 "prepick_cuda": fused.prepick_cuda}
 
-    def walk(clusters, tri_shade, q, **kw):
-        out = launch(clusters, tri_shade, q, **kw)
-        calls.append((clusters, tri_shade, q, kw, out))
-        return out
+    def recorder(launch):
+        def walk(clusters, tri_shade, q, **kw):
+            out = launch(clusters, tri_shade, q, **kw)
+            calls.append((clusters, tri_shade, q, kw, out))
+            return out
+        return walk
 
-    fused.walk_cuda = walk
+    for name, launch in launchers.items():
+        setattr(fused, name, recorder(launch))
     try:
         yield calls
     finally:
-        fused.walk_cuda = launch
+        for name, launch in launchers.items():
+            setattr(fused, name, launch)
 
 
 def check_recorded(calls, what, record):
@@ -635,10 +747,9 @@ def phase_pretest_frame(flat, cfg, rays, img_default, frame_rows, record):
 
 
 def _kernel_ms(row, reps):
-    from raytpu_torch.kernels.fused import walk_cuda
-
-    return _cuda_ms(lambda: walk_cuda(row["clusters"], row["tri_shade"],
-                                      row["q"], **row["kw"]), reps)
+    kernel, _ = _walks(row["kw"])
+    return _cuda_ms(lambda: kernel(row["clusters"], row["tri_shade"],
+                                   row["q"], **row["kw"]), reps)
 
 
 def _instanced_ms(iscene, cfg, camera, walk):
@@ -655,8 +766,59 @@ def _instanced_ms(iscene, cfg, camera, walk):
         prender.nearest_hit_instanced = query
 
 
+def _bounded(kw):
+    return "picks" in kw or kw.get("max_trips", 0) > 0
+
+
+def _call_line(row):
+    """One walk call's kernel ms, bound, trips and, for a bounded walk,
+    overflow share (rays it left unresolved, of its live rays)."""
+    kw, q, out = row["kw"], row["q"], row["out"]
+    live = int((torch.isfinite(q.origin).all(-1)
+                & torch.isfinite(q.direction).all(-1)).sum())
+    if "picks" in kw:
+        walk = f"prepick {kw['picks']}"
+    elif kw.get("max_trips", 0):
+        walk = f"max_trips {kw['max_trips']}"
+    else:
+        walk = "classic"
+    row["overflow_share"] = (int((out.resolved == 0).sum()) / max(live, 1)
+                             if _bounded(kw) else None)
+    share = ("" if row["overflow_share"] is None
+             else f", overflow {row['overflow_share']:.4%}")
+    return (f"{'any_hit' if kw['any_hit'] else 'nearest'} {walk} "
+            f"({live} live rays): kernel {row['kernel_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms, trips mean "
+            f"{float(out.iters.float().mean()):.2f} max {int(out.iters.max())}"
+            f"{share}")
+
+
+def _timed_calls(calls, reps):
+    """Rows of recorded walk calls with their kernel ms and bound (no plain
+    comparison)."""
+    rows = []
+    for clusters, tri_shade, q, kw, got in calls:
+        ncg, _, csize = clusters["block"].shape
+        row = {"kw": kw, "q": q, "out": got, "iters": got.iters,
+               "clusters": clusters, "tri_shade": tri_shade,
+               **walk_bound(q, got, ncg, csize, kw)}
+        row["kernel_ms"] = _kernel_ms(row, reps)
+        rows.append(row)
+    return rows
+
+
+def _call_summary(row):
+    return {"walk": {k: str(v) for k, v in row["kw"].items()},
+            "kernel_ms": row["kernel_ms"], "bound_ms": row["bound_ms"],
+            "trips_mean": float(row["iters"].float().mean()),
+            "trips_max": int(row["iters"].max()),
+            "overflow_share": row.get("overflow_share")}
+
+
 def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
-                record):
+                overflow, record):
+    import dataclasses
+
     from raytpu_torch.render.instanced import render_image_instanced
     from raytpu_torch.render.wavefront import render_rays, trace_colors
 
@@ -665,9 +827,13 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
     print(f"[times] {card}")
     default = lambda: render_rays(flat, cfg, o, d)  # noqa: E731
     pretest = lambda: render_rays(flat, pcfg, o, d)  # noqa: E731
-    turns = [("default", default), ("pretest", pretest),
-             ("pretest", pretest), ("default", default)]
-    ms = {"default": [], "pretest": []}
+    frames = [("default", default), ("pretest", pretest)] + [
+        (label, functools.partial(render_rays, flat,
+                                  dataclasses.replace(cfg, **change), o, d))
+        for label, change in TIMED_OVERFLOW]
+    # Turns: each setting, then all of them in reverse order.
+    turns = frames + frames[::-1]
+    ms = {name: [] for name, _ in frames}
     for name, fn in turns:
         ms[name].append(_cuda_ms(fn, REPS))
     plain_frame = _cuda_ms(
@@ -678,6 +844,14 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
                              "turns_ms": ms["pretest"]}}
     for k in ("frame", "pretest_frame"):
         out[k]["rays_per_s"] = frame_rays / out[k]["kernel_ms"] * 1e3
+    out["overflow_frames"] = {
+        label: {"kernel_ms": statistics.mean(ms[label]),
+                "turns_ms": ms[label],
+                "rays_per_s": frame_rays / statistics.mean(ms[label]) * 1e3}
+        for label, _ in TIMED_OVERFLOW}
+    print(f"  bench frame by walk setting, in turns (each, then in reverse "
+          f"order), {REPS} frames a turn: " + "; ".join(
+              f"{k} {[round(m, 3) for m in v]} ms" for k, v in ms.items()))
     print(f"  bench frame {RES}x{RES} ({frame_rays} rays), turns default/"
           f"pretest/pretest/default: {[round(m, 3) for m in ms['default']]}"
           f" / {[round(m, 3) for m in ms['pretest']]} ms; default "
@@ -701,6 +875,18 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
                   f" ops), trips mean "
                   f"{float(row['iters'].float().mean()):.2f} max "
                   f"{int(row['iters'].max())}")
+    # The overflow settings' walk calls: those held against the plain walk
+    # in [overflow], and the 7,811-pick frame's, recorded here.
+    with recording_walks() as calls:
+        render_rays(flat, dataclasses.replace(cfg, cull_prepick=7811), o, d)
+    per_call = {label: overflow[label]["rows"] for label in overflow}
+    per_call["cull_prepick=7811"] = _timed_calls(calls, REPS * 4)
+    for label, rows in per_call.items():
+        for row in rows:
+            row.setdefault("kernel_ms", _kernel_ms(row, REPS * 4))
+            print(f"  bench {label} call: " + _call_line(row))
+    out["overflow_calls"] = {label: [_call_summary(r) for r in rows]
+                             for label, rows in per_call.items()}
 
     iscene, icfg, camera, irows, live_rays = inst
     inst_ms = _cuda_ms(lambda: render_image_instanced(iscene, icfg, camera),
@@ -736,14 +922,46 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
               f"{c['tests_mean']:.2f}, ray tests {c['ray_tests_mean']:.1f}")
     # The same frame with the walk's opt-ins turned off, between two turns
     # of the defaults.
-    walks = {"defaults": [], **{name: [] for name, _ in INSTANCED_WALKS}}
-    for name, kw in (("defaults", {}),) + INSTANCED_WALKS + (
+    overflow_walks = tuple(
+        (label, {**change, **(NO_OPT_INS if "cull_prepick" in change
+                              else {})})
+        for label, change in TIMED_OVERFLOW)
+    walks = {"defaults": [],
+             **{name: [] for name, _ in INSTANCED_WALKS + overflow_walks}}
+    for name, kw in (("defaults", {}),) + INSTANCED_WALKS + overflow_walks + (
             ("defaults", {}),):
         walks[name].append(_instanced_ms(iscene, icfg, camera, kw))
     out["instanced_walks_ms"] = walks
     print("  instanced frame by walk setting (turns of 1 frame after a "
-          "warm-up): " + "; ".join(f"{k} {[round(m, 3) for m in v]} ms"
-                                   for k, v in walks.items()))
+          "warm-up; prepick with the pretest and re-cull off): "
+          + "; ".join(f"{k} {[round(m, 3) for m in v]} ms"
+                      for k, v in walks.items()))
+    # The bounded walks' calls of one instanced frame per overflow setting.
+    from raytpu_torch.render import instanced as prender
+
+    query = prender.nearest_hit_instanced
+    out["instanced_overflow_calls"] = {}
+    for label, kw in overflow_walks:
+        prender.nearest_hit_instanced = functools.partial(query, **kw)
+        try:
+            with recording_walks() as calls:
+                render_image_instanced(iscene, icfg, camera)
+        finally:
+            prender.nearest_hit_instanced = query
+        rows = _timed_calls(calls, 1)
+        for row in rows:
+            _call_line(row)
+        bounded = [r for r in rows if _bounded(r["kw"])]
+        finish = [r for r in rows if not _bounded(r["kw"])]
+        shares = [r["overflow_share"] for r in bounded]
+        print(f"  instanced {label}: {len(bounded)} bounded calls, kernel "
+              f"{sum(r['kernel_ms'] for r in bounded):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in bounded):.3f} ms, trips max "
+              f"{max(int(r['iters'].max()) for r in bounded)}, overflow "
+              f"{min(shares):.2%}-{max(shares):.2%}; {len(finish)} finishing "
+              f"calls, kernel {sum(r['kernel_ms'] for r in finish):.3f} ms")
+        out["instanced_overflow_calls"][label] = [_call_summary(r)
+                                                 for r in rows]
     record.append({"what": "times", "card": card, **out})
     return out
 
@@ -858,6 +1076,309 @@ def phase_profile(card, flat, cfg, rays, inst, record):
                    "bench": bench, "instanced": instanced})
 
 
+def _each_ms(fn, n):
+    """``n`` calls of ``fn`` after one warm-up, each timed with CUDA
+    events."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return times
+
+
+def _grads_close(gpu, cpu):
+    """The largest excess of |card - CPU| over FIT_RTOL * |CPU| +
+    FIT_ATOL * max|CPU| (<= 0: within the tolerance)."""
+    a, b = gpu.detach().cpu().double(), cpu.detach().double()
+    scale = float(b.abs().max())
+    return float(((a - b).abs() - FIT_RTOL * b.abs()
+                  - FIT_ATOL * scale).max())
+
+
+def _card_vs_cpu_grads(dev, record):
+    """render_loss gradients on the card and on the CPU: the small instanced
+    scene's objects baked as one scene (two spheres, a checkered ground),
+    one reflection."""
+    import dataclasses
+
+    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.diff.fit import render_loss
+    from raytpu_torch.diff.params import GEOMETRY, TEXTURE, extract_params
+
+    cfg = RenderConfig(width=32, height=32, max_reflections=1,
+                       quantize=Quantize.NONE, tile_pixels=32 * 32,
+                       cull_tile=64)
+    cam = Camera(position=(3.0, 16.0, 32.0))
+    host = _small_instanced_scene(0.3, False)
+    target = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (32 * 32, 3)).astype(np.float32))
+    for fields, tau in ((GEOMETRY, 0.0), (GEOMETRY, 0.05), (TEXTURE, 0.0)):
+        grads, losses = {}, {}
+        for where in ("cpu", dev):
+            scene = host.flatten(cluster_size=16, device=where)
+            o, d = camera_rays(cam, 32, 32, device=where)
+            params = extract_params(scene, fields)
+            loss = render_loss(scene, dataclasses.replace(cfg, soft_tau=tau),
+                               params, o, d, target.to(where))
+            loss.backward()
+            grads[str(where)] = {k: v.grad for k, v in params.items()}
+            losses[str(where)] = float(loss.detach())
+        gc, gg = grads["cpu"], grads[str(dev)]
+        excess = max(_grads_close(gg[k], gc[k]) for k in gc)
+        diff = max(float((gg[k].cpu() - gc[k]).abs().max()) for k in gc)
+        finite = all(bool(torch.isfinite(g).all()) for g in gg.values())
+        print(f"  gradients {fields} soft_tau={tau}, card vs CPU: loss "
+              f"{losses[str(dev)]:.7g} / {losses['cpu']:.7g}, max abs diff "
+              f"{diff:.3g}, finite {finite}, within rtol {FIT_RTOL} + atol "
+              f"{FIT_ATOL} x max|g|: {excess <= 0}")
+        if not finite or excess > 0:
+            raise AssertionError("card and CPU gradients differ")
+        record.append({"what": "grads card vs cpu", "fields": fields,
+                       "soft_tau": tau, "max_abs_diff": diff})
+
+
+def _step_split(forward, backward, update):
+    """One fit step in its parts (``forward()`` returns the loss,
+    ``backward(loss)``, ``update()``), CUDA events between them, and the
+    torch.profiler split of another: device ms of the walk kernels, of the
+    row gather's scatter-add (``geo_rows_scatter_add``), of everything
+    else, and the five device kernels that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss = forward()
+    ev[1].record()
+    backward(loss)
+    ev[2].record()
+    update()
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = {name: ev[i].elapsed_time(ev[i + 1])
+             for i, name in enumerate(("forward", "backward", "update"))}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backward(forward())
+        update()
+        torch.cuda.synchronize()
+    dev_ms, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            key = ("walks" if "walk_kernel" in e.name else "other")
+            dev_ms[key] = dev_ms.get(key, 0.0) + ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    scatter = sum(e.device_time_total for e in prof.key_averages()
+                  if e.key == "geo_rows_scatter_add") / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return parts, {**dev_ms, "scatter_add": scatter,
+                   "top": [(name[:90], ms) for name, ms in top]}
+
+
+def phase_fit(dev, card, flat, record):
+    """bench.py's backward workload on the port: 512x512 gradient steps on
+    the 1M-triangle terrain (geometry, then the textured terrain's atlas),
+    a real Adam fit with re-bakes, and card-vs-CPU gradients."""
+    import dataclasses
+
+    from raytpu_torch import Quantize, RenderConfig, TextureFiltering
+    from raytpu_torch.core.camera import Camera
+    from raytpu_torch.diff.fit import (fit, make_fit_step, rebuild_accel,
+                                       render_loss)
+    from raytpu_torch.diff.params import GEOMETRY, TEXTURE, extract_params
+    from raytpu_torch.render.wavefront import render_image, render_rays
+
+    print(f"[fit] {card}; bench.py's backward workload, {FIT_RES}x"
+          f"{FIT_RES}, max_reflections=0")
+    _card_vs_cpu_grads(dev, record)
+    cfg = RenderConfig(width=FIT_RES, height=FIT_RES, max_reflections=0,
+                       tile_pixels=FIT_RES ** 2, quantize=Quantize.NONE)
+    o, d = _frame_rays(FIT_RES, dev)
+    t0 = time.perf_counter()
+    textured = bench_scene(TRIS, textured=True).flatten(
+        cluster_size=CLUSTER_SIZE, device=dev)
+    torch.cuda.synchronize()
+    print(f"  textured terrain baked in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for label, scene, fields, fcfg in (
+            ("geometry", flat, GEOMETRY, cfg),
+            ("texture", textured, TEXTURE,
+             dataclasses.replace(cfg, filtering=TextureFiltering.BILINEAR))):
+        # bench.py: the target is the scene's own render, the optimizer
+        # SGD with learning rate 0 (timing only).
+        target = render_rays(scene, fcfg, o, d)
+        params = extract_params(scene, fields)
+        opt = torch.optim.SGD(list(params.values()), lr=0.0)
+        step = make_fit_step(scene, fcfg, opt, fields=fields)
+        reset_launches()
+        loss = step(params, o, d, target)
+        launches = read_launches()
+        grads = [p.grad for p in params.values()]
+        finite = (bool(torch.isfinite(loss))
+                  and all(bool(torch.isfinite(g).all()) for g in grads))
+        nonzero = sum(int((g != 0).sum()) for g in grads)
+        if not (finite and nonzero and launches["nearest"]
+                and launches["any_hit"]):
+            raise AssertionError(f"{label} fit step: loss {float(loss)}, "
+                                 f"finite {finite}, nonzero grads {nonzero},"
+                                 f" launches {launches}")
+        times = _each_ms(lambda: step(params, o, d, target), FIT_STEPS)
+        ms = statistics.mean(times)
+        out[label] = {"step_ms": times, "mean_ms": ms,
+                      "backward_rays_per_s": 2 * FIT_RES ** 2 / ms * 1e3,
+                      "launches": launches, "nonzero_grads": nonzero,
+                      "loss": float(loss)}
+        print(f"  {label} step (forward, backward, SGD update): "
+              f"{[round(t, 3) for t in times]} ms, mean {ms:.3f} ms, "
+              f"{out[label]['backward_rays_per_s']:.4g} backward rays/s "
+              f"(2 x {FIT_RES}^2 per step); loss {float(loss):.3g}, "
+              f"{nonzero} nonzero gradient entries, all finite; launches "
+              f"{launches}")
+        if label == "geometry":
+            with recording_walks() as calls:
+                step(params, o, d, target)
+            check_recorded(calls, "fit step", record)
+        # The step's own settings: neither field group flows through the
+        # non-geometry row channels (make_fit_step's choice).
+        scfg = dataclasses.replace(fcfg, grad_channels="geometry")
+
+        def forward():
+            opt.zero_grad(set_to_none=True)
+            return render_loss(scene, scfg, params, o, d, target)
+
+        parts, dev_ms = _step_split(forward, lambda l: l.backward(),
+                                    opt.step)
+        out[label]["split_ms"] = parts
+        out[label]["device_ms"] = dev_ms
+        print(f"  {label} step split (CUDA events): forward "
+              f"{parts['forward']:.3f} ms, backward "
+              f"{parts['backward']:.3f} ms, update {parts['update']:.3f}"
+              f" ms; torch.profiler device ms: walk kernels "
+              f"{dev_ms.get('walks', 0.0):.3f}, geo_rows_scatter_add "
+              f"(index_add_) {dev_ms['scatter_add']:.3f}, all other "
+              f"kernels {dev_ms.get('other', 0.0):.3f}; top kernels "
+              + "; ".join(f"{n} {ms:.3f}" for n, ms in dev_ms["top"]))
+        del params, opt, step, grads, forward
+
+    # A real fit: Adam from the terrain with its heights scaled, toward the
+    # unscaled terrain's image, re-baking the cluster tables every
+    # FIT_REBUILD steps.
+    camera = Camera(position=(0.0, 28.0, 34.0), target=(0.0, 0.0, 0.0),
+                    aspect=1.0)
+    target_img = render_image(flat, cfg, camera)
+    scaled = bench_scene(TRIS, height_scale=FIT_HEIGHT_SCALE).flatten(
+        cluster_size=CLUSTER_SIZE, device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    fitted, params, hist = fit(
+        scaled, cfg, camera, target_img, fields=GEOMETRY,
+        steps=FIT_ADAM_STEPS, learning_rate=FIT_LR,
+        rebuild_every=FIT_REBUILD,
+        callback=lambda i, l: losses.append((i, l)))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    print(f"  Adam fit, heights x{FIT_HEIGHT_SCALE}, lr {FIT_LR}, "
+          f"{FIT_ADAM_STEPS} steps, re-bake every {FIT_REBUILD}: losses "
+          + ", ".join(f"{l:.7g}" for l in hist) + f" ({fit_s:.1f} s)")
+    # The re-bake exposes the cracks that independent per-triangle vertex
+    # updates open in a watertight mesh (the walk between re-bakes still
+    # finds the baked, closed surface): count the primary rays that miss.
+    with torch.no_grad():
+        stale = render_image(fitted, cfg, camera)
+        fresh = render_image(rebuild_accel(fitted, params), cfg, camera)
+    black = lambda img: int((img.reshape(-1, 3).max(-1).values  # noqa
+                             == 0).sum())
+    print(f"  black pixels: target {black(target_img)}, fitted with the "
+          f"last bake's tables {black(stale)}, re-baked {black(fresh)}")
+    epochs = [hist[i:i + FIT_REBUILD] for i in range(0, len(hist),
+                                                     FIT_REBUILD)]
+    falling = all(b < a for e in epochs for a, b in zip(e, e[1:]))
+    if not (all(math.isfinite(l) for l in hist) and falling):
+        raise AssertionError(f"the Adam fit does not descend between "
+                             f"re-bakes: {hist}")
+    out["adam_fit"] = {"losses": hist, "seconds": fit_s,
+                       "last_below_first": hist[-1] < hist[0],
+                       "black_pixels": {"target": black(target_img),
+                                        "last_bake": black(stale),
+                                        "re_baked": black(fresh)}}
+    record.append({"what": "fit", "card": card, **out})
+    return out
+
+
+def _same_hits(flat, rays, base, strategy):
+    """The primary query under ``strategy`` against ``base``: same hits at
+    the same t bit for bit; returns (same, exact-t ties won by another
+    triangle)."""
+    from raytpu_torch.kernels.fused import nearest_hit_fused
+
+    o, d = rays
+    got = nearest_hit_fused(flat, o, d, **strategy)
+    same = (torch.equal(got.hit, base.hit)
+            and _bits_equal(got.t[base.hit], base.t[base.hit]))
+    return same, base.hit & (got.tri != base.tri)
+
+
+def phase_overflow(flat, cfg, rays, img_default, record):
+    """The bench frame through the prepick walk and the phase-1 compaction:
+    launch counters (the rescue and phase 2 must run), the image against
+    the default frame's, every walk call against its plain version."""
+    import dataclasses
+
+    from raytpu_torch.kernels.fused import nearest_hit_fused
+    from raytpu_torch.render.wavefront import render_rays
+
+    o, d = rays
+    base = nearest_hit_fused(flat, o, d)
+    print("[overflow] the bench frame with the prepick walk and the phase-1 "
+          "compaction")
+    out = {}
+    for label, change in OVERFLOW_SETTINGS:
+        ocfg = dataclasses.replace(cfg, **change)
+        reset_launches()
+        img = render_rays(flat, ocfg, o, d)
+        launches = read_launches()
+        picked = "cull_prepick" in change
+        first = ("nearest_prepick", "any_hit_prepick") if picked else (
+            "nearest_budget", "any_hit_budget")
+        finish = launches["nearest"] + launches["any_hit"]
+        print(f"  {label}: launches {launches}")
+        if not all(launches[k] > 0 for k in first) or (
+                label in MUST_FINISH and finish == 0):
+            raise AssertionError(f"{label}: a walk did not run: {launches}")
+        _check_image(img, label)
+        strategy = ({"prepick": change["cull_prepick"]} if picked
+                  else {"phase1_trips": change["cull_phase1"]})
+        same, ties = _same_hits(flat, rays, base, strategy)
+        differ = (img != img_default).any(-1)
+        print(f"  primary hits and t bit for bit the default's: {same}; "
+              f"exact-t ties won by another triangle: {int(ties.sum())}; "
+              f"pixels that differ from the default frame: "
+              f"{int(differ.sum())}")
+        if not same or bool((differ & ~ties).any()):
+            raise AssertionError(f"{label}: the frame differs from the "
+                                 "default beyond exact-t ties")
+        with recording_walks() as calls:
+            render_rays(flat, ocfg, o, d)
+        rows = check_recorded(calls, label, record)
+        out[label] = {"launches": launches, "rows": rows,
+                      "ties": int(ties.sum()),
+                      "pixels_differ": int(differ.sum())}
+        record.append({"what": f"overflow {label}", "launches": launches,
+                       "ties": int(ties.sum()),
+                       "pixels_differ": int(differ.sum())})
+    return out
+
+
 def _kernel_entry(name, replaces, launches, err, rows):
     """One kernel's line: times, bound and trips summed or averaged over
     the walk calls ``rows`` it was measured on."""
@@ -883,19 +1404,28 @@ def main():
                         / "chip_smoke")
     args = parser.parse_args()
 
+    started = time.perf_counter()
     card = phase_device()
     args.out.mkdir(parents=True, exist_ok=True)
     record = []
     build_s = phase_build(args.out)
     dev = torch.device("cuda")
     small_err = phase_small(dev, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
     flat, cfg, rays, img, frame_rows, launches = phase_frame(dev, record)
     iscene, icfg, camera, inst_rows, inst_launches, live_rays = \
         phase_instanced(dev, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
     pcfg, pre_rows, pre_launches = phase_pretest_frame(
         flat, cfg, rays, img, frame_rows, record)
+    overflow = phase_overflow(flat, cfg, rays, img, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    phase_fit(dev, card, flat, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
     phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows,
-                (iscene, icfg, camera, inst_rows, live_rays), record)
+                (iscene, icfg, camera, inst_rows, live_rays), overflow,
+                record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
     phase_profile(card, flat, cfg, rays, (iscene, icfg, camera), record)
 
     def rows_of(rows, any_hit, pretest):
@@ -905,6 +1435,17 @@ def main():
     def err_of(name, *row_sets):
         return max([small_err.get(name, 0.0)]
                    + [r["err"] for rows in row_sets for r in rows])
+
+    def bounded_rows(label, any_hit):
+        return [r for r in overflow[label]["rows"]
+                if r["kw"]["any_hit"] == any_hit and _bounded(r["kw"])]
+
+    def bounded_err(any_hit, label, **kind):
+        names = [n for n in small_err if n.startswith(
+            "any_hit" if any_hit else "nearest") and n.endswith(
+                "_prepick" if "picks" in kind else "_budget")]
+        return max([small_err[n] for n in names]
+                   + [r["err"] for r in bounded_rows(label, any_hit)])
 
     variant = "raytpu/kernels/fused.py:299 (pretest, recull_every)"
     kernels = [
@@ -926,12 +1467,31 @@ def main():
                       err_of("any_hit_pretest", rows_of(pre_rows, True, True)),
                       rows_of(pre_rows, True, True)),
     ]
+    # The two new walks, from their own paths' runs: 64 picks, and phase 1
+    # on an 8-trip budget.
+    prepick, budget = "cull_prepick=64", "cull_phase1=8"
+    for any_hit in (False, True):
+        kind = "any_hit" if any_hit else "nearest"
+        kernels.append(_kernel_entry(
+            f"prepick_kernel<{kind}> picks=64",
+            "raytpu/kernels/fused.py:732 (_prepick_kernel; rescue :1790)",
+            overflow[prepick]["launches"][f"{kind}_prepick"],
+            bounded_err(any_hit, prepick, picks=True),
+            bounded_rows(prepick, any_hit)))
+    for any_hit in (False, True):
+        kind = "any_hit" if any_hit else "nearest"
+        kernels.append(_kernel_entry(
+            f"walk_kernel<{kind}> max_trips=8",
+            "raytpu/kernels/fused.py:690 (max_trips; phase-1 compaction :1823)",
+            overflow[budget]["launches"][f"{kind}_budget"],
+            bounded_err(any_hit, budget), bounded_rows(budget, any_hit)))
     for k in kernels:
         if not (math.isfinite(k["ms"]) and k["launches"] > 0):
             raise AssertionError(f"{k['name']}: no time or no launch")
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": kernels,
          "records": record}, indent=1, default=str))
+    print(f"[done] {time.perf_counter() - started:.0f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

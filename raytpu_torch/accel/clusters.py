@@ -11,6 +11,7 @@ NumPy; ``as_device_arrays`` emits the tables the walk reads.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -192,13 +193,21 @@ def _median_split_leaves(centroids: np.ndarray, idx: np.ndarray,
     return leaves
 
 
-def build_clusters(tri_verts: np.ndarray,
-                   cluster_size: int = 128) -> ClusterTable:
+def build_clusters(tri_verts: np.ndarray, cluster_size: int = 128,
+                   valid: Optional[np.ndarray] = None,
+                   pad_clusters_to: Optional[int] = None) -> ClusterTable:
     """Cluster ``tri_verts`` (T, 3, 3) into fixed-size spatial groups:
     spatial-median BVH leaves (see _median_split_leaves), or one cluster in
-    Morton order when the scene fits in one."""
+    Morton order when the scene fits in one.
+
+    ``valid``: (T,) bool, the triangles to cluster (default all).
+    ``pad_clusters_to``: pad the table to that many clusters with empty,
+    never-feasible ones (±big box), so rebuilds of moving geometry keep
+    every table's shape (diff/fit.py ``rebuild_every``); below the built
+    count it raises ``ValueError``."""
     v = np.asarray(tri_verts, np.float32).reshape(-1, 3, 3)
-    idx = np.arange(v.shape[0])
+    idx = (np.arange(v.shape[0]) if valid is None
+           else np.flatnonzero(valid))
     centroids = v[idx].mean(axis=1)
 
     if idx.shape[0] > cluster_size:
@@ -230,6 +239,15 @@ def build_clusters(tri_verts: np.ndarray,
         nc = max(1, -(-n // cluster_size))
         slots = np.full(nc * cluster_size, -1, np.int64)
         slots[:n] = order
+
+    if pad_clusters_to is not None:
+        if pad_clusters_to < nc:
+            raise ValueError(
+                f"pad_clusters_to={pad_clusters_to} < built count {nc}")
+        slots = np.concatenate(
+            [slots, np.full((pad_clusters_to - nc) * cluster_size, -1,
+                            np.int64)])
+        nc = pad_clusters_to
 
     member = v[np.maximum(slots, 0)]  # (Tp, 3, 3)
     mn = np.where(slots[:, None, None] >= 0, member, BIG).reshape(

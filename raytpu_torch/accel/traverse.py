@@ -54,9 +54,14 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
     values other than their defaults raise ``NotImplementedError``.
     ``cull_pretest``/``cull_recull``: the walk's slab pretest and its
     re-cull every that many trips (0 = never), on by default as in the JAX
-    package; they change the walk's shape, never its hits.  ``cull_chunk``,
-    ``cull_phase1``, ``cull_prepick`` and ``cull_nbuf`` other than their
-    defaults raise ``NotImplementedError`` naming their ROADMAP.md item.
+    package; they change the walk's shape, never its hits.
+    ``cull_phase1``: the two-phase compaction on that trip budget;
+    ``cull_prepick``: the prepick walk with that many picks per tile and its
+    rescue pass (it refuses the pretest and the re-cull with ``ValueError``,
+    as the JAX package does); ``cull_nbuf``: the reference's DMA ring
+    depth, any int >= 1, which sets nothing on the card
+    (``kernels/fused.py::nearest_hit_fused``).  ``cull_chunk`` other than 1
+    raises ``NotImplementedError`` naming its ROADMAP.md item.
     ``any_hit``: occlusion-query mode — the hit/no-hit boolean (against
     ``t_max``) is exact but the reported hit is not the nearest
     (IsLightPathObstructed's early-out, RayTracer.cs:465-502).
@@ -70,14 +75,12 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
     _refuse("brute_force_max_tris", brute_force_max_tris, 4096,
             "queue 1 item 5 (the other query backends)")
     _refuse("cull_chunk", cull_chunk, 1, "queue 2 item 2 (walk opt-ins)")
-    _refuse("cull_phase1", cull_phase1, 0, "queue 2 item 4 (trip budget)")
-    _refuse("cull_prepick", cull_prepick, 0, "queue 2 item 1 (prepick walk)")
-    _refuse("cull_nbuf", cull_nbuf, 4, "queue 2 item 1 (prepick walk)")
     from raytpu_torch.kernels.fused import nearest_hit_fused
 
     return nearest_hit_fused(
         scene, origin, direction, ignore_tri, ignore_mesh, cull,
         tile_size=cull_tile, t_max=t_max, any_hit=any_hit,
         pretest=cull_pretest, recull_every=cull_recull,
+        phase1_trips=cull_phase1, prepick=cull_prepick, nbuf=cull_nbuf,
         return_rows=with_rows,
     )

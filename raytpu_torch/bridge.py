@@ -19,7 +19,7 @@ TABLES = ("tri_shade", "mesh_material", "mesh_convex", "mat_reflect",
           "mat_transparent", "mat_refraction", "mat_use_texture",
           "mat_interp_normals", "mat_texture", "textures", "tex_hw")
 META = ("num_tris", "num_meshes", "num_lights", "light_kinds",
-        "has_transparent", "has_textures")
+        "has_transparent", "has_textures", "has_dual_branch")
 
 
 def _tensor(a):
@@ -89,3 +89,35 @@ def instanced_scene_from_numpy(bakes, instances, lights: dict,
         [Instance(int(mi), np.asarray(w, np.float32),
                   np.asarray(iw, np.float32)) for mi, w, iw in instances],
         {k: np.array(v) for k, v in lights.items()}, num_lights, dev)
+
+
+def fit_state_from_numpy(params: dict, adam=None, learning_rate: float = 1e-2,
+                         device="cuda"):
+    """Carry a fit's training state across: the reference fit's params (a
+    dict of NumPy arrays, ``diff/params.py`` field names) and, optionally,
+    its ``optax.adam`` state as NumPy, ``(count, mu, nu)`` with ``mu`` and
+    ``nu`` dicts like ``params``.
+
+    Returns ``(params, state)``: the port's params (leaf tensors on
+    ``device``, floating ones requiring grad) and the ``state_dict`` of a
+    ``torch.optim.Adam(learning_rate)`` over them in the order of their
+    names (as ``fit`` holds them), with the same moments and step count
+    (None without ``adam``).  The
+    pair is what ``diff/fit.py::fit`` checkpoints, so a fit begun in one
+    package goes on in the other through ``io/checkpoint.py``."""
+    dev = resolve(device)
+    out = {}
+    for name, a in params.items():
+        x = _tensor(a).to(dev)
+        out[name] = x.requires_grad_() if x.is_floating_point() else x
+    if adam is None:
+        return out, None
+    count, mu, nu = adam
+    opt = torch.optim.Adam([out[k] for k in sorted(out)], lr=learning_rate)
+    for name, x in out.items():
+        opt.state[x] = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": _tensor(mu[name]).to(dev),
+            "exp_avg_sq": _tensor(nu[name]).to(dev)}
+    return out, opt.state_dict()

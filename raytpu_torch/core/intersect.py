@@ -1,12 +1,15 @@
-"""Möller–Trumbore acceptance in det-multiplied space, on tensors.
+"""Möller–Trumbore acceptance in det-multiplied space, on tensors, and the
+guarded Möller–Trumbore recompute of the differentiable render.
 
-``kernels/csrc/walk.cu`` carries the same rule in C++ (``accept`` and
+``kernels/csrc/walk.cu`` carries the acceptance rule in C++ (``accept`` and
 ``accept_within``); the plain walk in ``kernels/fused.py`` calls these.
 """
 
 from __future__ import annotations
 
 import torch
+
+from raytpu_torch.core.math3d import cross, dot
 
 
 def _det_sign(det):
@@ -46,3 +49,24 @@ def det_space_accept_within(det, udet, vdet, tdet, t_max, cull):
         return ok & (tdet > t_max * det)
     s = _det_sign(det)
     return ok & (tdet * s < t_max * (det * s))
+
+
+def moller_trumbore_safe(origin, direction, v1, e1, e2, eps: float = 1e-20):
+    """Möller–Trumbore (RayExtensions.cs:13-39) with a determinant guard,
+    for the differentiable recompute (render/wavefront.py,
+    ``cfg.differentiable``).  Returns ``(u, v, d)``.
+
+    For a triangle that passed the acceptance test the determinant is
+    nonzero and the guard never fires; for masked-out lanes (missed rays
+    gathering a placeholder triangle) it keeps inf/NaN out of the values,
+    whose zero cotangents would otherwise turn the gradients NaN."""
+    t = origin - v1
+    p = cross(direction, e2)
+    q = cross(t, e1)
+    det = dot(p, e1)
+    det = torch.where(det.abs() < eps, 1.0, det)
+    inv_det = 1.0 / det
+    d = dot(q, e2) * inv_det
+    u = dot(p, t) * inv_det
+    v = dot(q, direction) * inv_det
+    return u, v, d

@@ -31,12 +31,19 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Rays, tile, cluster tables and sizes, then each entry point's own.
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
+# The prepick walk's: rays, tile, root, aabb, block, sizes; cull, picks.
+_PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I]
 _SIGNATURES = {
-    # tri_shade, cull, pretest, recull_every, t, code, u, v, tri, rows,
-    # iters, tests, ray_tests, stream
-    "rt_nearest_hit": _COMMON + [_P, _I, _I, _I] + [_P] * 10,
-    # cull, pretest, recull_every, t, code, iters, tests, ray_tests, stream
-    "rt_any_hit": _COMMON + [_I, _I, _I] + [_P] * 6,
+    # tri_shade, cull, pretest, recull_every, max_trips, t, code, u, v, tri,
+    # rows, resolved, iters, tests, ray_tests, stream
+    "rt_nearest_hit": _COMMON + [_P, _I, _I, _I, _I] + [_P] * 11,
+    # cull, pretest, recull_every, max_trips, t, code, resolved, iters,
+    # tests, ray_tests, stream
+    "rt_any_hit": _COMMON + [_I, _I, _I, _I] + [_P] * 7,
+    # t, code, u, v, tri, resolved, iters, tests, ray_tests, stream
+    "rt_prepick_nearest": _PREPICK + [_P] * 10,
+    # t, code, resolved, iters, tests, ray_tests, stream
+    "rt_prepick_any_hit": _PREPICK + [_P] * 7,
 }
 
 _library = None

@@ -1,5 +1,5 @@
-// Cluster walk kernels for the forward render path: nearest-hit and any-hit
-// ray queries against the cluster tables of raytpu_torch/accel/clusters.py.
+// Cluster walk kernels: nearest-hit and any-hit ray queries against the
+// cluster tables of raytpu_torch/accel/clusters.py.
 //
 // walk_kernel<false, CULL, false> replaces raytpu/kernels/fused.py::
 // _tlane_kernel as the render path runs it (nearest hit with the winner's u,
@@ -8,10 +8,13 @@
 // runtime recull_every replaces _fused_kernel's two walk opt-ins, ``pretest``
 // (fused.py:547-570, :598-606, :644-645) and ``recull_every``
 // (fused.py:668-681), for nearest (the instanced render's default) and
-// any-hit queries.  CULL is 0 (no culling), 1 (backface culling) or 2 (the
-// mirrored "reverse" culling of shadow rays cast from the light).
+// any-hit queries.  A runtime ``max_trips`` replaces _fused_kernel's trip
+// budget (fused.py:690-697), the first phase of the two-phase compaction.
+// prepick_kernel<ANY_HIT, CULL> replaces _prepick_kernel
+// (fused.py:732-956).  CULL is 0 (no culling), 1 (backface culling) or 2
+// (the mirrored "reverse" culling of shadow rays cast from the light).
 //
-// One thread block walks one tile of rays, one ray per thread:
+// walk_kernel: one thread block walks one tile of rays, one ray per thread:
 //   1. prologue: per-ray finite mask and root-box t cap; the tile's beam
 //      (origin box and direction box over its finite rays); a conservative
 //      entry bound for every cluster (slab interval intersected with the
@@ -23,7 +26,8 @@
 //   3. settle: a nearest query resolves a ray once its best hit is at or
 //      before the next entry bound; an any-hit query at its first accepted
 //      hit or once its t bound is at or before the next entry.  The block
-//      stops when every ray is resolved or the entries run out.
+//      stops when every ray is resolved, the entries run out or, with
+//      max_trips > 0, after that many trips.
 //
 // PRETEST: before staging a picked cluster, each thread slab-tests its ray
 // against the cluster's box (the aabb table, equal to block rows 18-23,
@@ -37,24 +41,45 @@
 // re-cull needs no shared memory of its own.  A sub-beam's bounds are never
 // below the beam's in IEEE arithmetic, so picks stay non-decreasing.
 //
-// Thread 0 writes per tile the trips (clusters picked: the reference's
-// ``iters``), the clusters whose triangles were tested, and the ray tests
-// the function needs: the unresolved rays of each tested cluster, summed
-// (every thread tests its ray, but a resolved ray's tests change nothing).
+// prepick_kernel: the same prologue with slab-only entry bounds (the
+// reference gives the fitted-plane rows only to its classic walk, and the
+// plane changes the visiting order, so exact-t ties would resolve
+// differently), then a pick phase that drains up to ``picks`` (F) clusters
+// front to back into shared memory (F block-wide argmins, lowest id on
+// equal entries) and the tail bound (the least entry left unpicked; FLOAT_MAX
+// once drained), then a walk over exactly those picks with no pick per trip.
+// Each ray settles against the next pick's entry, or the tail bound after
+// the last pick.  Rays of a tile with more than F feasible clusters may come
+// back unresolved, holding a true candidate; kernels/fused.py finishes them
+// with an unbudgeted classic walk (the rescue pass).  No shade rows.
+//
+// Every walk writes the per-ray resolved flag: 1 once the ray is proven
+// (settled, dead from the start, or its tile's entries ran out), 0 for a ray
+// that a trip or pick budget left holding a candidate.
+//
+// Thread 0 writes per tile the trips (clusters picked and walked: the
+// reference's ``iters``), the clusters whose triangles were tested, and the
+// ray tests the function needs: the unresolved rays of each tested cluster,
+// summed (every thread tests its ray, but a resolved ray's tests change
+// nothing).
 //
 // What bounds it on an H100: per tested cluster each thread does ~45 FP32
 // operations and 18 shared-memory loads per triangle, with the same
-// address across the warp (broadcast); the argmin pick scans the entry table
-// (ncg floats in shared memory) once per trip, and a re-cull recomputes it.
-// The design keeps everything a tile touches more than once on chip: the
-// entry table and the staged block live in shared memory, and device memory
-// is read once per tested cluster (18 of its 24 * C floats are staged) and
-// per ray.  No asynchronous copies or double buffering yet.
+// address across the warp (broadcast); the classic walk's argmin pick scans
+// the entry table (ncg floats in shared memory) once per trip, and a re-cull
+// recomputes it; the prepick walk pays up to F such scans before its walk
+// and none during it.  The design keeps everything a tile touches more than
+// once on chip: the entry table, the picks and the staged block live in
+// shared memory, and device memory is read once per tested cluster (18 of
+// its 24 * C floats are staged) and per ray.  No asynchronous copies or
+// double buffering yet (the reference's ``nbuf``-deep DMA ring has no
+// counterpart here).
 //
-// Bitwise agreement with the plain PyTorch walk (kernels/fused.py::
-// walk_plain) rests on the same operations in the same order, IEEE division,
-// NaN-propagating min/max where PyTorch's minimum/maximum propagate NaN, and
-// building with -fmad=false so no a*b+c contracts to an FMA.
+// Bitwise agreement with the plain PyTorch walks (kernels/fused.py::
+// walk_plain, prepick_plain) rests on the same operations in the same order,
+// IEEE division, NaN-propagating min/max where PyTorch's minimum/maximum
+// propagate NaN, and building with -fmad=false so no a*b+c contracts to an
+// FMA.
 
 #include <cuda_runtime.h>
 
@@ -79,11 +104,13 @@ struct WalkArgs {
   int ts;                  // rays per tile; R is a multiple of it
   const float* root;       // (8,) box min xyz, box max xyz, margin, 0
   const float* aabb;       // (6, ncg)
-  const float* plane;      // (5, ncg)
+  const float* plane;      // (5, ncg); unused by the prepick walk
   const float* block;      // (ncg, 24, csize)
   int ncg;
   int csize;
   int recull_every;        // 0: never
+  int max_trips;           // 0: no budget
+  int picks;               // prepick walk: F
   const float* tri_shade;  // (N, 32), nearest only
   float* out_t;
   int* out_code;
@@ -91,6 +118,7 @@ struct WalkArgs {
   float* out_v;     // nearest only
   int* out_tri;     // nearest only
   float* out_rows;  // (R, 32), nearest only; null: no rows
+  int* out_res;     // (R,) resolved flag
   int* out_iters;   // (R / ts,) trips per tile
   int* out_tests;   // (R / ts,) clusters tested per tile
   int* out_ray_tests;  // (R / ts,) unresolved rays per tested cluster, summed
@@ -165,7 +193,9 @@ struct Beam {
   bool any;    // the tile has a finite ray
 };
 
-// kernels/fused.py::_entry_bounds for cluster j.
+// kernels/fused.py::_entry_bounds for cluster j; PLANE=false: the slab
+// interval alone (the prepick walk's).
+template <bool PLANE>
 __device__ float entry_bound(const WalkArgs& a, int j, const Beam& b) {
   const int n = a.ncg;
   float t_lo = 0.f, t_hi = kInf;
@@ -179,27 +209,29 @@ __device__ float entry_bound(const WalkArgs& a, int j, const Beam& b) {
     t_lo = max_nan(t_lo, lo);
     t_hi = min_nan(t_hi, hi);
   }
-  float g_lo = 0.f, g_hi = 0.f, o_dlo = 0.f, o_dhi = 0.f;
+  if (PLANE) {
+    float g_lo = 0.f, g_hi = 0.f, o_dlo = 0.f, o_dhi = 0.f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float nk = a.plane[k * n + j];
-    const float p = nk * b.d_min[k], q = nk * b.d_max[k];
-    g_lo = g_lo + min_nan(p, q);
-    g_hi = g_hi + max_nan(p, q);
-    const float c1 = nk * b.o_min[k], c2 = nk * b.o_max[k];
-    o_dlo = o_dlo + min_nan(c1, c2);
-    o_dhi = o_dhi + max_nan(c1, c2);
+    for (int k = 0; k < 3; ++k) {
+      const float nk = a.plane[k * n + j];
+      const float p = nk * b.d_min[k], q = nk * b.d_max[k];
+      g_lo = g_lo + min_nan(p, q);
+      g_hi = g_hi + max_nan(p, q);
+      const float c1 = nk * b.o_min[k], c2 = nk * b.o_max[k];
+      o_dlo = o_dlo + min_nan(c1, c2);
+      o_dhi = o_dhi + max_nan(c1, c2);
+    }
+    const float d0 = a.plane[3 * n + j], eps = a.plane[4 * n + j];
+    const float A = (d0 - o_dhi) - eps;
+    const float B = (d0 - o_dlo) + eps;
+    const float inv_ghi = 1.0f / (g_hi == 0.f ? 1.f : g_hi);
+    const float inv_glo = 1.0f / (g_lo == 0.f ? 1.f : g_lo);
+    float lo, hi;
+    interval(A, B, inv_glo, inv_ghi, g_lo > 0.f, g_hi > 0.f, g_lo < 0.f,
+             g_hi < 0.f, lo, hi);
+    t_lo = max_nan(t_lo, lo);
+    t_hi = min_nan(t_hi, hi);
   }
-  const float d0 = a.plane[3 * n + j], eps = a.plane[4 * n + j];
-  const float A = (d0 - o_dhi) - eps;
-  const float B = (d0 - o_dlo) + eps;
-  const float inv_ghi = 1.0f / (g_hi == 0.f ? 1.f : g_hi);
-  const float inv_glo = 1.0f / (g_lo == 0.f ? 1.f : g_lo);
-  float lo, hi;
-  interval(A, B, inv_glo, inv_ghi, g_lo > 0.f, g_hi > 0.f, g_lo < 0.f,
-           g_hi < 0.f, lo, hi);
-  t_lo = max_nan(t_lo, lo);
-  t_hi = min_nan(t_hi, hi);
   const bool feasible = t_lo <= t_hi && t_lo < kInf && t_lo < b.wcap;
   return (feasible && b.any) ? t_lo : kInf;
 }
@@ -260,6 +292,7 @@ struct Pick {
 };
 
 // Nearest remaining entry, lowest cluster id on equal entries; consumes it.
+// The caller puts a barrier between two calls with nothing else between.
 __device__ Pick pick_next(float* ent, int ncg, float* red_f, int* red_i) {
   float v = kInf;
   int k = INT_MAX;
@@ -298,8 +331,175 @@ __device__ Pick pick_next(float* ent, int ncg, float* red_f, int* red_i) {
   return {v, k};
 }
 
+// The prepick walk's steps.  walk_kernel carries the same steps inline,
+// in the form that keeps it within its register budget (see its note).
+
+// One thread's ray (fused.py::_walk_tiles prologue).
+struct Ray {
+  float o[3], d[3];
+  float tmax0;  // t bound capped at the root box's exit
+  int itri, imesh;
+  bool finite;
+};
+
+__device__ Ray load_ray(const WalkArgs& a, size_t r, bool active) {
+  const float qnan = __int_as_float(0x7fc00000);
+  Ray ray;
+  float tmax_in = 0.f;
+  ray.itri = -1;
+  ray.imesh = -1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ray.o[k] = active ? a.origin[3 * r + k] : qnan;
+    ray.d[k] = active ? a.direction[3 * r + k] : qnan;
+  }
+  if (active) {
+    tmax_in = a.tmax[r];
+    ray.itri = a.ignore_tri[r];
+    ray.imesh = a.ignore_mesh[r];
+  }
+  bool finite = active;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    finite = finite && isfinite(ray.o[k]) && isfinite(ray.d[k]);
+  }
+  ray.finite = finite;
+
+  // Root-box t cap (fused.py::_finite_and_cap_lm).
+  const float margin = a.root[6];
+  float t_en = -kInf, t_ex = kInf;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float safe_d = ray.d[k] == 0.f ? kTinyDir : ray.d[k];
+    const float t1 = (a.root[k] - margin - ray.o[k]) / safe_d;
+    const float t2 = (a.root[3 + k] + margin - ray.o[k]) / safe_d;
+    t_en = max_nan(t_en, min_nan(t1, t2));
+    t_ex = min_nan(t_ex, max_nan(t1, t2));
+  }
+  const bool root_hit = t_en <= t_ex && t_ex >= 0.f;
+  float cap = root_hit ? t_ex * kCapScale + margin : 0.f;
+  cap = isfinite(cap) ? cap : 0.f;
+  ray.tmax0 = min_nan(tmax_in, cap);
+  return ray;
+}
+
+// The entry table of the tile's beam over its finite rays
+// (fused.py::_tile_bounds_lm), pruned at the largest bound of the
+// unresolved rays, so a dead ray's NaN bound cannot poison its tile.  Every
+// thread calls it; it ends in a barrier.
+template <bool PLANE>
+__device__ void fill_entries(const WalkArgs& a, const Ray& ray, bool res,
+                             float* ent, float* red_f) {
+  const float wcap = block_reduce(res ? -kInf : ray.tmax0, MaxNanOp(), red_f);
+  const Beam b = make_beam(ray.o, ray.d, ray.finite, wcap, red_f);
+  for (int j = threadIdx.x; j < a.ncg; j += blockDim.x) {
+    ent[j] = entry_bound<PLANE>(a, j, b);
+  }
+  __syncthreads();
+}
+
+// Per-ray best (fused.py::_walk_tiles state).
+struct Best {
+  float t;
+  int code;
+  float u, v, det;
+  int tri;
+};
+
+// Stage cluster k's geometry rows into shared memory; every thread calls
+// it.  Returns the tile's unresolved rays (the barrier after the staging).
+__device__ int stage(const WalkArgs& a, int k, float* geo, bool res) {
+  const int C = a.csize;
+  const float* src = a.block + static_cast<size_t>(k) * kBlockRows * C;
+  for (int e = threadIdx.x; e < kGeoRows * C; e += blockDim.x) geo[e] = src[e];
+  return __syncthreads_count(!res);
+}
+
+// Test the ray against the staged cluster k (fused.py::_test_cluster).
+template <bool ANY_HIT, int CULL>
+__device__ __forceinline__ void test_staged(const float* geo, int C, int k,
+                                            const Ray& ray, const float w[3],
+                                            Best& best) {
+  const float* o = ray.o;
+  const float* d = ray.d;
+  for (int j = 0; j < C; ++j) {
+    const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
+    const float det = d[0] * nx + d[1] * ny + d[2] * nz;
+    const float udet = w[0] * geo[6 * C + j] + w[1] * geo[7 * C + j] +
+                       w[2] * geo[8 * C + j] + d[0] * geo[3 * C + j] +
+                       d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
+    const float vdet = w[0] * geo[12 * C + j] + w[1] * geo[13 * C + j] +
+                       w[2] * geo[14 * C + j] + d[0] * geo[9 * C + j] +
+                       d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
+    const float tdet = geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
+    const int tri_id = __float_as_int(geo[16 * C + j]);
+    const int mesh_id = __float_as_int(geo[17 * C + j]);
+    const bool keep = tri_id != ray.itri && mesh_id != ray.imesh;
+    if (ANY_HIT) {
+      if (keep && accept_within<CULL>(det, udet, vdet, tdet, ray.tmax0)) {
+        best.code = 0;
+      }
+    } else {
+      const float dist =
+          (keep && accept<CULL>(det, udet, vdet, tdet)) ? tdet / det : kInf;
+      if (dist < best.t) {
+        best.t = dist;
+        best.code = k * C + j;
+        best.u = udet;
+        best.v = vdet;
+        best.det = det;
+        best.tri = tri_id;
+      }
+    }
+  }
+}
+
+// Thread 0 writes the tile's counters; every active thread its ray's
+// outputs.
+template <bool ANY_HIT>
+__device__ void write_out(const WalkArgs& a, size_t r, bool active,
+                          const Best& best, bool res, int trips, int tests,
+                          int ray_tests) {
+  if (threadIdx.x == 0) {
+    a.out_iters[blockIdx.x] = trips;
+    a.out_tests[blockIdx.x] = tests;
+    a.out_ray_tests[blockIdx.x] = ray_tests;
+  }
+  if (!active) return;
+  a.out_res[r] = res ? 1 : 0;
+  if (ANY_HIT) {
+    a.out_t[r] = best.code >= 0 ? 0.f : best.t;
+    a.out_code[r] = best.code;
+    return;
+  }
+  const bool hit = best.code >= 0;
+  const float safe_det = hit ? best.det : 1.f;
+  a.out_t[r] = best.t;
+  a.out_code[r] = best.code;
+  a.out_u[r] = best.u / safe_det;
+  a.out_v[r] = best.v / safe_det;
+  a.out_tri[r] = best.tri;
+  if (a.out_rows == nullptr) return;
+  // The winner's shade row straight from tri_shade, channel 31 (mesh id
+  // stored as int32 bits) written as a float value; misses get zeros.
+  float* row = a.out_rows + r * kShadeCols;
+  if (hit) {
+    const float* srow = a.tri_shade + static_cast<size_t>(best.tri) * kShadeCols;
+    for (int c = 0; c < kShadeCols - 1; ++c) row[c] = srow[c];
+    row[kShadeCols - 1] =
+        static_cast<float>(__float_as_int(srow[kShadeCols - 1]));
+  } else {
+    for (int c = 0; c < kShadeCols; ++c) row[c] = 0.f;
+  }
+}
+
+// At most 80 registers a thread (__maxnreg__, CUDA 12.4 and later): three
+// blocks of 256 threads then fit on an SM.  Uncapped, the nearest
+// instantiation takes 86 and only two fit, 8% slower on the bench frame;
+// capped it spills 12 bytes and times like the uncapped walk before the trip
+// budget and the resolved flag were added (walk_ab.py, H100).
 template <bool ANY_HIT, int CULL, bool PRETEST>
-__global__ void walk_kernel(WalkArgs a) {
+__global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
   extern __shared__ float smem[];
   float* ent = smem;           // (ncg,) remaining entry bounds
   float* geo = smem + a.ncg;   // (18, csize) staged cluster block
@@ -355,7 +555,7 @@ __global__ void walk_kernel(WalkArgs a) {
     const float wcap = block_reduce(res ? -kInf : tmax0, MaxNanOp(), red_f);
     const Beam b = make_beam(o, d, finite, wcap, red_f);
     for (int j = tid; j < a.ncg; j += blockDim.x) {
-      ent[j] = entry_bound(a, j, b);
+      ent[j] = entry_bound<true>(a, j, b);
     }
   }
   __syncthreads();
@@ -378,6 +578,8 @@ __global__ void walk_kernel(WalkArgs a) {
   int trips = 0, tests = 0, ray_tests = 0;
 
   Pick cur = pick_next(ent, a.ncg, red_f, red_i);
+  // No feasible cluster: nothing to hit, every ray is proven.
+  if (!(cur.v < kInf)) res = true;
   while (cur.v < kInf) {
     ++trips;
     bool viable = true;
@@ -438,13 +640,16 @@ __global__ void walk_kernel(WalkArgs a) {
     const Pick nxt = pick_next(ent, a.ncg, red_f, red_i);
     res = res || (ANY_HIT ? (bc >= 0 || tmax0 <= nxt.v) : (bt <= nxt.v));
     if (__syncthreads_and(res)) break;
+    // The trip budget (fused.py:690-697): the rays not yet resolved keep
+    // their best as a candidate.
+    if (a.max_trips > 0 && trips >= a.max_trips) break;
     if (a.recull_every > 0 && trips % a.recull_every == 0 && nxt.v < kInf) {
       // Re-cull from the unresolved rays' beam (fused.py:668-681).
       const float wcap =
           block_reduce(res ? -kInf : min_nan(bt, tmax0), MaxNanOp(), red_f);
       const Beam b = make_beam(o, d, finite && !res, wcap, red_f);
       for (int j = tid; j < a.ncg; j += blockDim.x) {
-        if (ent[j] != consumed()) ent[j] = entry_bound(a, j, b);
+        if (ent[j] != consumed()) ent[j] = entry_bound<true>(a, j, b);
       }
       __syncthreads();
     }
@@ -457,6 +662,7 @@ __global__ void walk_kernel(WalkArgs a) {
     a.out_ray_tests[blockIdx.x] = ray_tests;
   }
   if (!active) return;
+  a.out_res[r] = res ? 1 : 0;
   if (ANY_HIT) {
     a.out_t[r] = bc >= 0 ? 0.f : bt;
     a.out_code[r] = bc;
@@ -483,22 +689,89 @@ __global__ void walk_kernel(WalkArgs a) {
   }
 }
 
-template <bool ANY_HIT, int CULL, bool PRETEST>
-cudaError_t launch(const WalkArgs& a, int n_rays, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(a.ncg) +
-                       static_cast<size_t>(kGeoRows) * a.csize);
+template <bool ANY_HIT, int CULL>
+__global__ void prepick_kernel(WalkArgs a) {
+  extern __shared__ float smem[];
+  const int C = a.csize, F = a.picks;
+  float* ent = smem;                  // (ncg,) entry bounds
+  float* geo = ent + a.ncg;           // (18, csize) staged cluster block
+  float* qv = geo + kGeoRows * C;     // (F,) picked entries, non-decreasing
+  int* qk = reinterpret_cast<int*>(qv + F);  // (F,) picked cluster ids
+  __shared__ float red_f[32];
+  __shared__ int red_i[32];
+
+  const int tid = threadIdx.x;
+  const bool active = tid < a.ts;
+  const size_t r = static_cast<size_t>(blockIdx.x) * a.ts + tid;
+  const Ray ray = load_ray(a, r, active);
+  const float tmax0 = ray.tmax0;
+  bool res = !ray.finite || !(tmax0 > 0.f);
+  fill_entries<false>(a, ray, res, ent, red_f);
+
+  // Pick phase (fused.py:810-826): up to F picks front to back, then the
+  // tail bound, the least entry left (kInf once drained).
+  int m = 0;
+  float tail = kInf;
+  while (true) {
+    const Pick p = pick_next(ent, a.ncg, red_f, red_i);
+    __syncthreads();  // thread 0's consumed mark before the next scan
+    if (!(p.v < kInf)) break;
+    if (m == F) {
+      tail = p.v;
+      break;
+    }
+    if (tid == 0) {
+      qv[m] = p.v;
+      qk[m] = p.k;
+    }
+    ++m;
+  }
+  __syncthreads();
+
+  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};
+  const float* o = ray.o;
+  const float* d = ray.d;
+  const float w[3] = {d[1] * o[2] - d[2] * o[1], d[2] * o[0] - d[0] * o[2],
+                      d[0] * o[1] - d[1] * o[0]};
+  // No feasible cluster: nothing to hit, every ray is proven.
+  if (m == 0) res = true;
+  int trips = 0, ray_tests = 0;
+  bool settled = __syncthreads_and(res);
+  // Walk exactly the picks (fused.py:862-933).
+  for (int s = 0; s < m && !settled; ++s) {
+    ++trips;
+    const int k = qk[s];
+    ray_tests += stage(a, k, geo, res);
+    test_staged<ANY_HIT, CULL>(geo, C, k, ray, w, best);
+    const float vn = s + 1 < m ? qv[s + 1] : tail;
+    res = res || (ANY_HIT ? (best.code >= 0 || tmax0 <= vn) : (best.t <= vn));
+    settled = __syncthreads_and(res);
+  }
+  write_out<ANY_HIT>(a, r, active, best, res, trips, trips, ray_tests);
+}
+
+// Dynamic shared memory of a block: the entry table and one staged cluster
+// block, and for the prepick walk F picks (entry and id).
+size_t smem_bytes(const WalkArgs& a, bool prepick) {
+  return sizeof(float) * (static_cast<size_t>(a.ncg) +
+                          static_cast<size_t>(kGeoRows) * a.csize) +
+         (prepick ? 8 * static_cast<size_t>(a.picks) : 0);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const WalkArgs& a, int n_rays, bool prepick,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(a, prepick);
   // Past the default 48 KB the kernel must opt in to more dynamic shared
-  // memory (scenes of more than ~10k clusters).
+  // memory (scenes of more than ~10k clusters, or many picks).
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        walk_kernel<ANY_HIT, CULL, PRETEST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int threads = (a.ts + 31) / 32 * 32;
-  walk_kernel<ANY_HIT, CULL, PRETEST>
-      <<<n_rays / a.ts, threads, smem, stream>>>(a);
+  kernel<<<n_rays / a.ts, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -506,9 +779,9 @@ template <bool ANY_HIT, bool PRETEST>
 cudaError_t dispatch_cull(const WalkArgs& a, int n_rays, int cull,
                           cudaStream_t stream) {
   switch (cull) {
-    case 0: return launch<ANY_HIT, 0, PRETEST>(a, n_rays, stream);
-    case 1: return launch<ANY_HIT, 1, PRETEST>(a, n_rays, stream);
-    case 2: return launch<ANY_HIT, 2, PRETEST>(a, n_rays, stream);
+    case 0: return launch(walk_kernel<ANY_HIT, 0, PRETEST>, a, n_rays, false, stream);
+    case 1: return launch(walk_kernel<ANY_HIT, 1, PRETEST>, a, n_rays, false, stream);
+    case 2: return launch(walk_kernel<ANY_HIT, 2, PRETEST>, a, n_rays, false, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -516,9 +789,21 @@ cudaError_t dispatch_cull(const WalkArgs& a, int n_rays, int cull,
 template <bool ANY_HIT>
 cudaError_t dispatch(const WalkArgs& a, int n_rays, int cull, int pretest,
                      cudaStream_t stream) {
-  if (a.recull_every < 0) return cudaErrorInvalidValue;
+  if (a.recull_every < 0 || a.max_trips < 0) return cudaErrorInvalidValue;
   return pretest ? dispatch_cull<ANY_HIT, true>(a, n_rays, cull, stream)
                  : dispatch_cull<ANY_HIT, false>(a, n_rays, cull, stream);
+}
+
+template <bool ANY_HIT>
+cudaError_t dispatch_prepick(const WalkArgs& a, int n_rays, int cull,
+                             cudaStream_t stream) {
+  if (a.picks < 1) return cudaErrorInvalidValue;
+  switch (cull) {
+    case 0: return launch(prepick_kernel<ANY_HIT, 0>, a, n_rays, true, stream);
+    case 1: return launch(prepick_kernel<ANY_HIT, 1>, a, n_rays, true, stream);
+    case 2: return launch(prepick_kernel<ANY_HIT, 2>, a, n_rays, true, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -528,14 +813,15 @@ extern "C" int rt_nearest_hit(
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
     const float* root, const float* aabb, const float* plane,
     const float* block, int ncg, int csize, const float* tri_shade, int cull,
-    int pretest, int recull_every, float* out_t, int* out_code, float* out_u,
-    float* out_v, int* out_tri, float* out_rows, int* out_iters,
-    int* out_tests, int* out_ray_tests, void* stream) {
-  const WalkArgs a{origin, direction, tmax,     ignore_tri, ignore_mesh,
-                   ts,     root,      aabb,     plane,      block,
-                   ncg,    csize,     recull_every, tri_shade, out_t,
-                   out_code, out_u,   out_v,    out_tri,    out_rows,
-                   out_iters, out_tests, out_ray_tests};
+    int pretest, int recull_every, int max_trips, float* out_t, int* out_code,
+    float* out_u, float* out_v, int* out_tri, float* out_rows, int* out_res,
+    int* out_iters, int* out_tests, int* out_ray_tests, void* stream) {
+  const WalkArgs a{origin,    direction, tmax,      ignore_tri,   ignore_mesh,
+                   ts,        root,      aabb,      plane,        block,
+                   ncg,       csize,     recull_every, max_trips, 0,
+                   tri_shade, out_t,     out_code,  out_u,        out_v,
+                   out_tri,   out_rows,  out_res,   out_iters,    out_tests,
+                   out_ray_tests};
   return static_cast<int>(dispatch<false>(
       a, n_rays, cull, pretest, static_cast<cudaStream_t>(stream)));
 }
@@ -545,15 +831,51 @@ extern "C" int rt_any_hit(
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
     const float* root, const float* aabb, const float* plane,
     const float* block, int ncg, int csize, int cull, int pretest,
-    int recull_every, float* out_t, int* out_code, int* out_iters,
-    int* out_tests, int* out_ray_tests, void* stream) {
-  const WalkArgs a{origin, direction, tmax,     ignore_tri, ignore_mesh,
-                   ts,     root,      aabb,     plane,      block,
-                   ncg,    csize,     recull_every, nullptr, out_t,
-                   out_code, nullptr, nullptr,  nullptr,    nullptr,
-                   out_iters, out_tests, out_ray_tests};
+    int recull_every, int max_trips, float* out_t, int* out_code,
+    int* out_res, int* out_iters, int* out_tests, int* out_ray_tests,
+    void* stream) {
+  const WalkArgs a{origin,  direction, tmax,      ignore_tri,   ignore_mesh,
+                   ts,      root,      aabb,      plane,        block,
+                   ncg,     csize,     recull_every, max_trips, 0,
+                   nullptr, out_t,     out_code,  nullptr,      nullptr,
+                   nullptr, nullptr,   out_res,   out_iters,    out_tests,
+                   out_ray_tests};
   return static_cast<int>(dispatch<true>(
       a, n_rays, cull, pretest, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int rt_prepick_nearest(
+    const float* origin, const float* direction, const float* tmax,
+    const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
+    const float* root, const float* aabb, const float* block, int ncg,
+    int csize, int cull, int picks, float* out_t, int* out_code,
+    float* out_u, float* out_v, int* out_tri, int* out_res, int* out_iters,
+    int* out_tests, int* out_ray_tests, void* stream) {
+  const WalkArgs a{origin,  direction, tmax,    ignore_tri, ignore_mesh,
+                   ts,      root,      aabb,    nullptr,    block,
+                   ncg,     csize,     0,       0,          picks,
+                   nullptr, out_t,     out_code, out_u,     out_v,
+                   out_tri, nullptr,   out_res, out_iters,  out_tests,
+                   out_ray_tests};
+  return static_cast<int>(dispatch_prepick<false>(
+      a, n_rays, cull, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int rt_prepick_any_hit(
+    const float* origin, const float* direction, const float* tmax,
+    const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
+    const float* root, const float* aabb, const float* block, int ncg,
+    int csize, int cull, int picks, float* out_t, int* out_code,
+    int* out_res, int* out_iters, int* out_tests, int* out_ray_tests,
+    void* stream) {
+  const WalkArgs a{origin,  direction, tmax,    ignore_tri, ignore_mesh,
+                   ts,      root,      aabb,    nullptr,    block,
+                   ncg,     csize,     0,       0,          picks,
+                   nullptr, out_t,     out_code, nullptr,   nullptr,
+                   nullptr, nullptr,   out_res, out_iters,  out_tests,
+                   out_ray_tests};
+  return static_cast<int>(dispatch_prepick<true>(
+      a, n_rays, cull, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* rt_error_string(int err) {

@@ -1,5 +1,5 @@
 """Nearest-hit and any-hit cluster walks: the CUDA kernels and their plain
-PyTorch version.
+PyTorch versions.
 
 A query is cut into tiles of ``tile_size`` rays.  Each tile culls every
 cluster against its beam (the box of its finite rays' origins and
@@ -32,16 +32,37 @@ of ``_fused_kernel``'s ``pretest`` and ``recull_every``):
   order; consumed clusters are marked +inf (above every entry, FLOAT_MAX
   included) and stay consumed.
 
-Both walks count per tile the trips (clusters picked, the counterpart of
-the reference kernel's ``iters``), the clusters whose triangles were
-tested (trips less pretest skips) and the ray tests the function needs
-(each tested cluster's unresolved rays, summed).
+Two bounded walks leave the rays they could not prove unresolved, each
+holding a true candidate (its best so far), and ``nearest_hit_fused``
+finishes those with an unbudgeted classic walk whose per-ray ``t_max`` is
+the candidate; that walk only takes strictly closer hits, so ties keep the
+earlier winner (the single-walk semantics):
 
-``walk_cuda`` launches the kernels of ``csrc/walk.cu``; ``walk_plain`` is
-the same walk in PyTorch, with the same arithmetic in the same order, and
-the two agree bit for bit on the card.  ``nearest_hit_fused`` takes the
-plain walk for tensors on the CPU and the kernels for CUDA tensors; there is
-no fallback from one to the other.
+- ``max_trips`` (the counterpart of ``_fused_kernel``'s trip budget): the
+  classic walk stops a tile after that many trips.  ``phase1_trips``
+  drives it: phase 1 walks every tile on the budget, the unresolved rays
+  are stably compacted to the front and re-tiled, so a few deep rays no
+  longer keep a whole lockstep tile walking, and phase 2 finishes them.
+- The prepick walk (the counterpart of ``_prepick_kernel``): entries from
+  the slab test alone, up to ``picks`` of them drained front to back
+  before the walk, which then tests exactly those clusters with no pick per
+  trip, settling against the next pick's entry or, after the last, the
+  tail bound (the least entry left).  Tiles with more feasible clusters
+  than picks may leave rays unresolved; the rescue pass finishes them, and
+  runs only when some ray is unresolved (a host read).
+
+Every walk counts per tile the trips (clusters picked and walked, the
+counterpart of the reference kernel's ``iters``), the clusters whose
+triangles were tested (trips less pretest skips) and the ray tests the
+function needs (each tested cluster's unresolved rays, summed), and returns
+the per-ray resolved flag.
+
+``walk_cuda`` and ``prepick_cuda`` launch the kernels of ``csrc/walk.cu``;
+``walk_plain`` and ``prepick_plain`` are the same walks in PyTorch, with the
+same arithmetic in the same order, and each kernel agrees with its plain
+version bit for bit on the card.  ``nearest_hit_fused`` takes the plain
+walks for tensors on the CPU and the kernels for CUDA tensors; there is no
+fallback from one to the other.
 
 Triangle ids ride as int32 end to end, so a scene may hold up to 2^31 - 1
 triangle slots (the reference kernel carried ids as f32 values and stopped
@@ -73,16 +94,24 @@ _CULL_CODE = {False: 0, True: 1, "reverse": 2}
 # Entry of a consumed cluster: above every entry bound, FLOAT_MAX included.
 CONSUMED = float("inf")
 
-# Launches of each CUDA kernel instantiation (query kind, and ``_pretest``
-# for the pretest variant); ``walk_cuda`` adds one per launch.
-LAUNCHES = {"nearest": 0, "any_hit": 0, "nearest_pretest": 0,
-            "any_hit_pretest": 0}
+
+def kernel_name(any_hit: bool, pretest: bool = False, budget: bool = False,
+                prepick: bool = False) -> str:
+    """The ``LAUNCHES`` key of a walk kernel launch: the query kind, then
+    ``_prepick`` for the prepick walk, or ``_pretest`` for the pretest
+    instantiation and ``_budget`` for a launch with a trip budget."""
+    name = "any_hit" if any_hit else "nearest"
+    if prepick:
+        return name + "_prepick"
+    return name + ("_pretest" if pretest else "") + ("_budget" if budget
+                                                     else "")
 
 
-def kernel_name(any_hit: bool, pretest: bool) -> str:
-    """The ``LAUNCHES`` key of a walk kernel instantiation."""
-    return ("any_hit" if any_hit else "nearest") + (
-        "_pretest" if pretest else "")
+# Launches of each CUDA kernel variant (``kernel_name``); ``walk_cuda`` and
+# ``prepick_cuda`` add one per launch.
+LAUNCHES = {kernel_name(a, p, b): 0 for a in (False, True)
+            for p in (False, True) for b in (False, True)}
+LAUNCHES.update({kernel_name(a, prepick=True): 0 for a in (False, True)})
 
 
 class Query(NamedTuple):
@@ -102,9 +131,10 @@ class WalkOut(NamedTuple):
     hits), the capped t bound on misses; ``code``: winning slot (any-hit: 0),
     -1 on misses; nearest only: ``u``, ``v``, ``tri`` and, when asked for,
     the (R, 32) shade ``rows`` (channel 31 the mesh id as a value, zeros on
-    misses).  Per tile, (NT,) int32: ``iters``, the walk's trips;
-    ``tests``, the clusters whose triangles were tested; ``ray_tests``, the
-    unresolved rays of each tested cluster, summed."""
+    misses); ``resolved``: (R,) int32, 1 once the ray is proven, 0 where a
+    budget left it holding a candidate.  Per tile, (NT,) int32: ``iters``,
+    the walk's trips; ``tests``, the clusters whose triangles were tested;
+    ``ray_tests``, the unresolved rays of each tested cluster, summed."""
 
     t: torch.Tensor
     code: torch.Tensor
@@ -112,19 +142,21 @@ class WalkOut(NamedTuple):
     v: Optional[torch.Tensor] = None
     tri: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
+    resolved: Optional[torch.Tensor] = None
     iters: Optional[torch.Tensor] = None
     tests: Optional[torch.Tensor] = None
     ray_tests: Optional[torch.Tensor] = None
 
 
 _PER_TILE = ("iters", "tests", "ray_tests")
+_PER_RAY = ("t", "code", "u", "v", "tri", "rows", "resolved")
 
 
 def pack_query(origin, direction, ignore_tri=None, ignore_mesh=None,
                t_max=None, tile_size: int = 256) -> Query:
     """Pad a ray batch to whole tiles.  Padding rays have NaN origins and
     directions (they never hit and stay out of the tile's beam) and t bound
-    0."""
+    0.  The walk sees detached tensors: it is not differentiable."""
     r = origin.shape[0]
     if r == 0:
         raise ValueError("empty ray batch")
@@ -140,7 +172,7 @@ def pack_query(origin, direction, ignore_tri=None, ignore_mesh=None,
         t_max = torch.full((r,), INF, dtype=f32, device=dev)
 
     def padded(a, dtype, fill):
-        a = a.to(dtype)
+        a = a.detach().to(dtype)
         if pad:
             a = torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
         return a.contiguous()
@@ -150,6 +182,15 @@ def pack_query(origin, direction, ignore_tri=None, ignore_mesh=None,
                  padded(t_max, f32, 0.0),
                  padded(ignore_tri, i32, -1),
                  padded(ignore_mesh, i32, -1), ts)
+
+
+def gather_rows(tri_shade, tri, hit):
+    """The winners' (R, 32) shade rows: ``tri_shade[tri]`` on channels 0-30,
+    the mesh id as a float value on channel 31, zeros on misses."""
+    srow = tri_shade[tri.clamp(min=0)]
+    mesh = srow[..., 31].contiguous().view(torch.int32).to(srow.dtype)
+    rows = torch.cat([srow[..., :31], mesh[..., None]], dim=-1)
+    return torch.where(hit[..., None], rows, 0.0)
 
 
 def assemble_hit(out: WalkOut, r: int, any_hit: bool):
@@ -169,38 +210,125 @@ def assemble_hit(out: WalkOut, r: int, any_hit: bool):
     return Hit(hit=hit, t=t, u=u, v=v, tri=tri), rows
 
 
+def compact_order(resolved):
+    """Stable permutation putting unresolved rays first (``_compact_order``,
+    raytpu/kernels/fused.py:1614): ``order[j]`` is the source index of
+    sorted slot ``j``."""
+    return torch.argsort(resolved.to(torch.int8), stable=True)
+
+
+def _finish_query(q: Query, out: WalkOut, unresolved) -> Query:
+    """The query that finishes ``out``'s unresolved rays: the resolved ones
+    ride along dead (NaN direction), the others get t bound = their
+    candidate, so only strictly closer hits replace it."""
+    nan = torch.tensor(float("nan"), dtype=q.direction.dtype,
+                       device=q.direction.device)
+    return q._replace(
+        direction=torch.where(unresolved[:, None], q.direction, nan),
+        t_max=torch.where(unresolved, out.t, 0.0).contiguous())
+
+
+def _merge(first: WalkOut, second: WalkOut, unresolved) -> WalkOut:
+    """``first`` with its unresolved rays' results replaced where the
+    finishing walk ``second`` found a strictly closer hit; the counters of
+    both walks summed per tile (by tile index, as the reference does)."""
+    upd = unresolved & (second.code >= 0)
+    fields = {}
+    for name in ("t", "code", "u", "v", "tri"):
+        a, b = getattr(first, name), getattr(second, name)
+        fields[name] = None if a is None else torch.where(upd, b, a)
+    for name in _PER_TILE:
+        fields[name] = getattr(first, name) + getattr(second, name)
+    return WalkOut(rows=None, resolved=second.resolved, **fields)
+
+
+def _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf):
+    for name, value, least in (("phase1_trips", phase1_trips, 0),
+                               ("prepick", prepick, 0), ("nbuf", nbuf, 1)):
+        if not isinstance(value, int) or value < least:
+            raise ValueError(f"{name} must be an int >= {least}, got "
+                             f"{value!r}")
+    if prepick and (pretest or recull_every):
+        raise ValueError("prepick is incompatible with pretest/recull_every "
+                         "(classic-walk-only settings)")
+    if prepick and phase1_trips:
+        raise ValueError("prepick and phase1_trips are mutually exclusive "
+                         "overflow strategies")
+
+
 def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
                       ignore_mesh=None, cull=True, tile_size: int = 256,
                       t_max=None, any_hit: bool = False,
                       recull_every: int = 0, pretest: bool = False,
+                      phase1_trips: int = 0, prepick: int = 0, nbuf: int = 4,
                       return_iters: bool = False, return_rows: bool = False):
     """Exact nearest hit (or any-hit occlusion) by the cluster walk.
 
-    CPU tensors go through ``walk_plain``, CUDA tensors through the CUDA
+    CPU tensors go through the plain walks, CUDA tensors through the CUDA
     kernels.  ``pretest``/``recull_every``: the walk-shape opt-ins (module
     docstring); the hits are the same with and without them.
+    ``phase1_trips`` > 0: the two-phase compaction, phase 1 on that
+    trip budget.  ``prepick`` > 0: the prepick walk with at most that many
+    picks per tile and the rescue pass; incompatible with ``pretest``,
+    ``recull_every`` and ``phase1_trips``.  ``nbuf``: the depth of the
+    reference kernel's DMA ring for the prepick walk (any int >= 1); the
+    CUDA walk stages one cluster at a time, so on the card it sets nothing,
+    and it never changes a result.
     ``return_rows``: return ``(Hit, rows)`` with the winners' (R, 32) shade
     rows; channel 31 carries the mesh id as a float value and misses get
-    all-zero rows (None for any-hit queries).  Otherwise ``return_iters``:
-    return ``(Hit, iters)`` with the (NT,) int32 trips per tile."""
+    all-zero rows (None for any-hit queries; the overflow strategies gather
+    them from ``tri_shade`` after the walks).  Otherwise ``return_iters``:
+    return ``(Hit, iters)`` with the (NT,) int32 trips per tile, summed
+    over the walks of a strategy."""
+    _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf)
     if origin.device.type == "cuda":
-        walk = walk_cuda
+        walk, pick_walk = walk_cuda, prepick_cuda
     elif origin.device.type == "cpu":
-        walk = walk_plain
+        walk, pick_walk = walk_plain, prepick_plain
     else:
         raise ValueError(f"no walk for device {origin.device}")
     q = pack_query(origin, direction, ignore_tri, ignore_mesh, t_max,
                    tile_size)
-    out = walk(scene.clusters, scene.tri_shade, q, cull=cull,
-               any_hit=any_hit, pretest=pretest, recull_every=recull_every,
-               rows=return_rows)
+    tables = (scene.clusters, scene.tri_shade)
+    kind = dict(cull=cull, any_hit=any_hit)
+    shape = dict(pretest=pretest, recull_every=recull_every)
+    if prepick:
+        out = pick_walk(*tables, q, picks=prepick, **kind)
+        unresolved = out.resolved == 0
+        # The rescue runs only when some ray is unresolved: a host read
+        # (the reference decides it on the device, with lax.cond).
+        if bool(unresolved.any()):
+            out = _merge(out, walk(*tables, _finish_query(q, out, unresolved),
+                                   rows=False, **kind), unresolved)
+    elif phase1_trips:
+        first = walk(*tables, q, max_trips=phase1_trips, rows=False, **kind,
+                     **shape)
+        order = compact_order(first.resolved != 0)
+        first_s = first._replace(**{
+            f: getattr(first, f)[order] for f in _PER_RAY
+            if getattr(first, f) is not None})
+        q_s = Query(*(a[order] for a in q[:5]), q.tile)
+        unresolved = first_s.resolved == 0
+        merged = _merge(first_s, walk(*tables,
+                                      _finish_query(q_s, first_s, unresolved),
+                                      rows=False, **kind, **shape),
+                        unresolved)
+        out = merged._replace(**{
+            f: torch.empty_like(getattr(merged, f)).index_copy_(
+                0, order, getattr(merged, f))
+            for f in _PER_RAY if getattr(merged, f) is not None})
+    else:
+        out = walk(*tables, q, rows=return_rows, **kind, **shape)
+    if return_rows and not any_hit and out.rows is None:
+        out = out._replace(rows=gather_rows(scene.tri_shade, out.tri,
+                                            out.code >= 0))
     hit, rows = assemble_hit(out, origin.shape[0], any_hit)
     if return_rows:
         return hit, rows
     return (hit, out.iters) if return_iters else hit
 
 
-# ---- The plain PyTorch walk -------------------------------------------------
+# ---- The plain PyTorch walks ------------------------------------------------
 
 
 def _interval(s_lo, s_hi, inv_lo, inv_hi, lo_pos, hi_pos, lo_neg, hi_neg):
@@ -226,7 +354,8 @@ def _recip_nonzero(x):
 def _entry_bounds(aabb, plane, finite, o3, d3, wcap):
     """(n, ncg) conservative entry bounds of every cluster for each tile's
     beam (the box of its finite rays): the slab interval intersected with
-    the fitted-plane interval; INF where infeasible or at/after ``wcap``."""
+    the fitted-plane interval (``plane`` None: the slab interval alone);
+    INF where infeasible or at/after ``wcap``."""
     any_m = finite.any(1, keepdim=True)
 
     def bound(a, fill, default, reduce):
@@ -250,23 +379,25 @@ def _entry_bounds(aabb, plane, finite, o3, d3, wcap):
                            d_lo > 0.0, d_hi > 0.0, d_lo < 0.0, d_hi < 0.0)
         t_lo = torch.maximum(t_lo, lo)
         t_hi = torch.minimum(t_hi, hi)
-    g_lo = torch.zeros_like(t_lo)
-    g_hi = torch.zeros_like(t_lo)
-    o_dlo = torch.zeros_like(t_lo)
-    o_dhi = torch.zeros_like(t_lo)
-    for k in range(3):
-        p, q = plane[k] * d_min[k], plane[k] * d_max[k]
-        g_lo = g_lo + torch.minimum(p, q)
-        g_hi = g_hi + torch.maximum(p, q)
-        c1, c2 = plane[k] * o_min[k], plane[k] * o_max[k]
-        o_dlo = o_dlo + torch.minimum(c1, c2)
-        o_dhi = o_dhi + torch.maximum(c1, c2)
-    a_ = (plane[3] - o_dhi) - plane[4]
-    b_ = (plane[3] - o_dlo) + plane[4]
-    lo, hi = _interval(a_, b_, _recip_nonzero(g_lo), _recip_nonzero(g_hi),
-                       g_lo > 0.0, g_hi > 0.0, g_lo < 0.0, g_hi < 0.0)
-    t_lo = torch.maximum(t_lo, lo)
-    t_hi = torch.minimum(t_hi, hi)
+    if plane is not None:
+        g_lo = torch.zeros_like(t_lo)
+        g_hi = torch.zeros_like(t_lo)
+        o_dlo = torch.zeros_like(t_lo)
+        o_dhi = torch.zeros_like(t_lo)
+        for k in range(3):
+            p, q = plane[k] * d_min[k], plane[k] * d_max[k]
+            g_lo = g_lo + torch.minimum(p, q)
+            g_hi = g_hi + torch.maximum(p, q)
+            c1, c2 = plane[k] * o_min[k], plane[k] * o_max[k]
+            o_dlo = o_dlo + torch.minimum(c1, c2)
+            o_dhi = o_dhi + torch.maximum(c1, c2)
+        a_ = (plane[3] - o_dhi) - plane[4]
+        b_ = (plane[3] - o_dlo) + plane[4]
+        lo, hi = _interval(a_, b_, _recip_nonzero(g_lo),
+                           _recip_nonzero(g_hi), g_lo > 0.0, g_hi > 0.0,
+                           g_lo < 0.0, g_hi < 0.0)
+        t_lo = torch.maximum(t_lo, lo)
+        t_hi = torch.minimum(t_hi, hi)
     feasible = (t_lo <= t_hi) & (t_lo < INF) & (t_lo < wcap[:, None])
     return torch.where(feasible & any_m, t_lo, INF)
 
@@ -283,11 +414,21 @@ def _pick(ent, idx):
     return torch.where(took, v, INF), k
 
 
-def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
-                pretest, recull_every, rows):
-    """Walk n whole tiles: ``o``/``d`` (n, ts, 3), the rest (n, ts)."""
-    block, root, aabb = cl["block"], cl["root"], cl["aabb"]
-    dev = o.device
+class _Tiles(NamedTuple):
+    """The prologue of a walk over n whole tiles (``o``/``d`` (n, ts, 3),
+    the rest (n, ts)): each ray's finite flag, root-capped t bound and
+    resolved flag, and the tiles' entry table."""
+
+    o3: tuple
+    d3: tuple
+    finite: torch.Tensor
+    tmax0: torch.Tensor
+    resolved: torch.Tensor
+    ent: torch.Tensor
+
+
+def _prologue(cl, o, d, tmax_in, plane: bool) -> _Tiles:
+    root, aabb = cl["root"], cl["aabb"]
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     finite = (torch.isfinite(ox) & torch.isfinite(oy) & torch.isfinite(oz)
@@ -313,30 +454,58 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
     # of the others, so a dead ray's NaN bound cannot poison its tile.
     resolved = ~finite | ~(tmax0 > 0.0)
     o3, d3 = (ox, oy, oz), (dx, dy, dz)
-    ent = _entry_bounds(aabb, cl["plane"], finite, o3, d3,
+    ent = _entry_bounds(aabb, cl["plane"] if plane else None, finite, o3, d3,
                         torch.where(resolved, -INF, tmax0).amax(1))
+    return _Tiles(o3, d3, finite, tmax0, resolved, ent)
 
-    n = tmax0.shape[0]
-    # Per-ray best, updated in place by _test_cluster.
-    bt = tmax0.clone()
-    bc = torch.full_like(itri, -1)
-    state = {"bt": bt, "bc": bc}
+
+def _walk_state(tl: _Tiles, itri, any_hit):
+    """Per-ray best, updated in place by _test_cluster."""
+    state = {"bt": tl.tmax0.clone(), "bc": torch.full_like(itri, -1)}
     if not any_hit:
+        bt = state["bt"]
         state.update(bu=torch.zeros_like(bt), bv=torch.zeros_like(bt),
                      bd=torch.ones_like(bt), bi=torch.full_like(itri, -1))
-    wx = dy * oz - dz * oy
-    wy = dz * ox - dx * oz
-    wz = dx * oy - dy * ox
+    (ox, oy, oz), (dx, dy, dz) = tl.o3, tl.d3
+    w3 = (dy * oz - dz * oy, dz * ox - dx * oz, dx * oy - dy * ox)
+    return state, w3
 
+
+def _walk_out(state, resolved, any_hit, trips, tests, ray_tests):
+    bc = state["bc"]
+    res = resolved.to(torch.int32)
+    if any_hit:
+        return WalkOut(t=torch.where(bc >= 0, 0.0, state["bt"]), code=bc,
+                       resolved=res, iters=trips, tests=tests,
+                       ray_tests=ray_tests)
+    safe_det = torch.where(bc >= 0, state["bd"], 1.0)
+    return WalkOut(t=state["bt"], code=bc, u=state["bu"] / safe_det,
+                   v=state["bv"] / safe_det, tri=state["bi"], resolved=res,
+                   iters=trips, tests=tests, ray_tests=ray_tests)
+
+
+def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
+                pretest, recull_every, max_trips, rows):
+    """Walk n whole tiles: ``o``/``d`` (n, ts, 3), the rest (n, ts)."""
+    block, aabb = cl["block"], cl["aabb"]
+    margin = cl["root"][6]
+    tl = _prologue(cl, o, d, tmax_in, plane=True)
+    o3, d3, tmax0, resolved, ent = tl.o3, tl.d3, tl.tmax0, tl.resolved, tl.ent
+    state, w3 = _walk_state(tl, itri, any_hit)
+    bt, bc = state["bt"], state["bc"]
+
+    n = tmax0.shape[0]
     if pretest:
         inv_d = [1.0 / torch.where(dk == 0.0, _TINY_DIR, dk) for dk in d3]
-    trips = torch.zeros(n, dtype=torch.int32, device=dev)
+    trips = torch.zeros(n, dtype=torch.int32, device=o.device)
     tests = torch.zeros_like(trips)
     ray_tests = torch.zeros_like(trips)
 
-    tiles = torch.arange(n, device=dev)
+    tiles = torch.arange(n, device=o.device)
     first, cur_k = _pick(ent, tiles)
     live = first < INF
+    # No feasible cluster: nothing to hit, every ray is proven.
+    resolved |= ~live[:, None]
     while bool(live.any()):
         idx = tiles[live]
         trips[idx] += 1
@@ -361,8 +530,8 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
         tests[tidx] += 1
         ray_tests[tidx] += (~resolved[tidx]).sum(1, dtype=torch.int32)
         if tidx.numel():
-            _test_cluster(block, tidx, cur_k[tidx], o3, d3, (wx, wy, wz),
-                          itri, imesh, tmax0, cull, any_hit, state)
+            _test_cluster(block, tidx, cur_k[tidx], o3, d3, w3, itri, imesh,
+                          tmax0, cull, any_hit, state)
         nv, nk = _pick(ent, idx)
         if any_hit:
             settle = (bc[idx] >= 0) | (tmax0[idx] <= nv[:, None])
@@ -371,6 +540,10 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
         res = resolved[idx] | settle
         resolved[idx] = res
         go = (nv < INF) & ~res.all(1)
+        if max_trips:
+            # The trip budget: the rays not yet resolved keep their best
+            # as a candidate.
+            go &= trips[idx] < max_trips
         live[idx] = go
         cur_k[idx] = nk
         if recull_every:
@@ -382,27 +555,65 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
                 unres = ~resolved[r_]
                 wcap = torch.where(unres, torch.minimum(bt[r_], tmax0[r_]),
                                    -INF).amax(1)
-                fresh = _entry_bounds(aabb, cl["plane"], finite[r_] & unres,
+                fresh = _entry_bounds(aabb, cl["plane"],
+                                      tl.finite[r_] & unres,
                                       tuple(a[r_] for a in o3),
                                       tuple(a[r_] for a in d3), wcap)
                 e = ent[r_]
                 ent[r_] = torch.where(e == CONSUMED, e, fresh)
 
-    if any_hit:
-        return WalkOut(t=torch.where(bc >= 0, 0.0, bt), code=bc, iters=trips,
-                       tests=tests, ray_tests=ray_tests)
-    hit = bc >= 0
-    safe_det = torch.where(hit, state["bd"], 1.0)
-    bi = state["bi"]
-    out = WalkOut(t=bt, code=bc, u=state["bu"] / safe_det,
-                  v=state["bv"] / safe_det, tri=bi, iters=trips, tests=tests,
-                  ray_tests=ray_tests)
-    if not rows:
-        return out
-    srow = tri_shade[bi.clamp(min=0)]
-    mesh = srow[..., 31].contiguous().view(torch.int32).to(srow.dtype)
-    rows_ = torch.cat([srow[..., :31], mesh[..., None]], dim=-1)
-    return out._replace(rows=torch.where(hit[..., None], rows_, 0.0))
+    out = _walk_out(state, resolved, any_hit, trips, tests, ray_tests)
+    if rows and not any_hit:
+        out = out._replace(rows=gather_rows(tri_shade, out.tri,
+                                            out.code >= 0))
+    return out
+
+
+def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
+    """The prepick walk of n whole tiles: ``o``/``d`` (n, ts, 3), the rest
+    (n, ts)."""
+    tl = _prologue(cl, o, d, tmax_in, plane=False)
+    tmax0, resolved = tl.tmax0, tl.resolved
+    state, w3 = _walk_state(tl, itri, any_hit)
+    bt, bc = state["bt"], state["bc"]
+    n, ncg = tl.ent.shape
+
+    # Pick phase: the first ``picks`` entries in (entry, cluster id) order,
+    # and the tail bound, the least entry left (INF once drained).  A
+    # stable sort orders equal entries by id, like repeated argmins.
+    vals, ks = torch.sort(tl.ent, dim=1, stable=True)
+    f = min(picks, ncg)
+    tail = (vals[:, picks] if picks < ncg
+            else torch.full((n,), INF, dtype=vals.dtype, device=vals.device))
+    pv, pk = vals[:, :f], ks[:, :f]
+    m = (pv < INF).sum(1)  # feasible picks per tile: a prefix
+    # The entry each ray settles against after pick s.
+    v_next = torch.cat([pv[:, 1:], tail[:, None]], dim=1)
+
+    trips = torch.zeros(n, dtype=torch.int32, device=o.device)
+    ray_tests = torch.zeros_like(trips)
+    # No feasible cluster: nothing to hit, every ray is proven.
+    resolved |= (m == 0)[:, None]
+    tiles = torch.arange(n, device=o.device)
+    live = (m > 0) & ~resolved.all(1)
+    s = 0
+    while bool(live.any()):
+        idx = tiles[live]
+        trips[idx] += 1
+        ray_tests[idx] += (~resolved[idx]).sum(1, dtype=torch.int32)
+        _test_cluster(cl["block"], idx, pk[idx, s], tl.o3, tl.d3, w3, itri,
+                      imesh, tmax0, cull, any_hit, state)
+        vn = v_next[idx, s][:, None]
+        if any_hit:
+            settle = (bc[idx] >= 0) | (tmax0[idx] <= vn)
+        else:
+            settle = bt[idx] <= vn
+        res = resolved[idx] | settle
+        resolved[idx] = res
+        live[idx] = (s + 1 < m[idx]) & ~res.all(1)
+        s += 1
+    return _walk_out(state, resolved, any_hit, trips, trips.clone(),
+                     ray_tests)
 
 
 def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
@@ -448,13 +659,10 @@ def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
         x[idx] = torch.where(upd, take(q), x[idx])
 
 
-def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
-               pretest: bool = False, recull_every: int = 0,
-               rows: bool = True):
-    """The walk in plain PyTorch, on any device; tiles are independent and
-    run in chunks that bound the pair temporaries.  ``rows``: a nearest
-    query also returns the winners' shade rows."""
-    _check_walk_args(cull, recull_every)
+def _over_chunks(clusters, q: Query, walk_tiles):
+    """Run ``walk_tiles(o, d, t_max, ignore_tri, ignore_mesh)`` over the
+    query's tiles in chunks that bound the pair temporaries (tiles are
+    independent), and join the results."""
     ts = q.tile
     nt = q.origin.shape[0] // ts
     ncg, _, csize = clusters["block"].shape
@@ -463,26 +671,46 @@ def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
     for s in range(0, nt, step):
         sl = slice(s * ts, min(s + step, nt) * ts)
         m = (sl.stop - sl.start) // ts
-        parts.append(_walk_tiles(
-            clusters, tri_shade,
+        parts.append(walk_tiles(
             q.origin[sl].reshape(m, ts, 3), q.direction[sl].reshape(m, ts, 3),
             q.t_max[sl].reshape(m, ts), q.ignore_tri[sl].reshape(m, ts),
-            q.ignore_mesh[sl].reshape(m, ts), cull, any_hit, pretest,
-            recull_every, rows))
+            q.ignore_mesh[sl].reshape(m, ts)))
     return WalkOut(*(
         None if xs[0] is None else
         torch.cat(xs if name in _PER_TILE else [x.flatten(0, 1) for x in xs])
         for name, xs in zip(WalkOut._fields, zip(*parts))))
 
 
+def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+               pretest: bool = False, recull_every: int = 0,
+               max_trips: int = 0, rows: bool = True):
+    """The classic walk in plain PyTorch, on any device.  ``max_trips`` > 0:
+    stop each tile after that many trips.  ``rows``: a nearest query also
+    returns the winners' shade rows."""
+    _check_walk_args(cull, recull_every, max_trips)
+    return _over_chunks(clusters, q, lambda *ray: _walk_tiles(
+        clusters, tri_shade, *ray, cull, any_hit, pretest, recull_every,
+        max_trips, rows))
+
+
+def prepick_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+                  picks: int):
+    """The prepick walk in plain PyTorch, on any device: at most ``picks``
+    clusters per tile.  No shade rows (``tri_shade`` is not read)."""
+    _check_walk_args(cull, 0, 0, picks)
+    return _over_chunks(clusters, q, lambda *ray: _prepick_tiles(
+        clusters, *ray, cull, any_hit, picks))
+
+
 # ---- The CUDA kernels -------------------------------------------------------
 
 
-def _smem_bytes(ncg: int, csize: int) -> int:
-    """Dynamic shared memory of one walk block: the entry table and one
-    staged cluster block.  The re-cull needs no table of its own: a consumed
-    cluster's entry is marked +inf in place (``CONSUMED``)."""
-    return 4 * (ncg + GEO_ROWS * csize)
+def _smem_bytes(ncg: int, csize: int, picks: int = 0) -> int:
+    """Dynamic shared memory of one walk block: the entry table, one staged
+    cluster block and, for the prepick walk, its picks (entry and id).  The
+    re-cull needs no table of its own: a consumed cluster's entry is marked
+    +inf in place (``CONSUMED``)."""
+    return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
 
 
 def _check(name, x, dev, dtype, shape):
@@ -497,19 +725,25 @@ def _check(name, x, dev, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_walk_args(cull, recull_every):
+def _check_walk_args(cull, recull_every, max_trips=0, picks=None):
     if cull not in _CULL_CODE:
         raise ValueError(
             f"cull must be True, False or 'reverse', got {cull!r}")
-    if not isinstance(recull_every, int) or recull_every < 0:
-        raise ValueError(f"recull_every must be an int >= 0, got "
-                         f"{recull_every!r}")
+    for name, value, least in (("recull_every", recull_every, 0),
+                               ("max_trips", max_trips, 0),
+                               ("picks", 1 if picks is None else picks, 1)):
+        if not isinstance(value, int) or value < least:
+            raise ValueError(f"{name} must be an int >= {least}, got "
+                             f"{value!r}")
 
 
-def _validate(clusters, tri_shade, q: Query, cull, recull_every=0):
-    """The checks the kernel's wrapper makes before a launch: every tensor on
-    the rays' device, of the kernel's dtype and shape, contiguous."""
-    _check_walk_args(cull, recull_every)
+def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
+              max_trips=0, picks=None):
+    """The checks a kernel's wrapper makes before a launch: every tensor on
+    the rays' device, of the kernel's dtype and shape, contiguous, and the
+    block's shared memory within the card's limit.  ``picks``: the prepick
+    walk's (None for the classic walk)."""
+    _check_walk_args(cull, recull_every, max_trips, picks)
     block = clusters["block"]
     r, ts = q.origin.shape[0], q.tile
     ncg, _, csize = block.shape
@@ -528,64 +762,98 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0):
             ("root", clusters["root"], f32, (8,)),
             ("tri_shade", tri_shade, f32, (tri_shade.shape[0], 32))):
         _check(name, x, q.origin.device, dtype, shape)
-    if _smem_bytes(ncg, csize) > SMEM_LIMIT:
+    need = _smem_bytes(ncg, csize, picks or 0)
+    if need > SMEM_LIMIT:
+        what = f" and {picks} picks" if picks else ""
         raise ValueError(
-            f"{ncg} clusters of {csize} need {_smem_bytes(ncg, csize)} bytes "
-            f"of shared memory per block; the limit is {SMEM_LIMIT}")
+            f"{ncg} clusters of {csize}{what} need {need} bytes of shared "
+            f"memory per block; the limit is {SMEM_LIMIT}")
+
+
+def _outputs(r, nt, dev, nearest):
+    f32, i32 = torch.float32, torch.int32
+    out = {"t": torch.empty((r,), dtype=f32, device=dev),
+           "code": torch.empty((r,), dtype=i32, device=dev),
+           "resolved": torch.empty((r,), dtype=i32, device=dev),
+           **{k: torch.empty((nt,), dtype=i32, device=dev)
+              for k in _PER_TILE}}
+    if nearest:
+        out.update(u=torch.empty((r,), dtype=f32, device=dev),
+                   v=torch.empty((r,), dtype=f32, device=dev),
+                   tri=torch.empty((r,), dtype=i32, device=dev))
+    return out
+
+
+def _launch(name, fn, args, dev):
+    from raytpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"walk kernel launch failed: {lib.rt_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
 
 
 def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
               pretest: bool = False, recull_every: int = 0,
-              rows: bool = True):
-    """Launch the walk kernel of ``csrc/walk.cu`` on the current stream.
+              max_trips: int = 0, rows: bool = True):
+    """Launch the classic walk kernel of ``csrc/walk.cu`` on the current
+    stream.
 
     Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` (nearest) and
-    ``_fused_kernel`` (any-hit, and nearest with ``pretest`` and
-    ``recull_every``); see the source for what bounds it on the card."""
-    from raytpu_torch.kernels.build import load_library
-
+    ``_fused_kernel`` (any-hit, and nearest with ``pretest``,
+    ``recull_every`` and ``max_trips``); see the source for what bounds it
+    on the card."""
     dev = q.origin.device
     if dev.type != "cuda":
         raise ValueError(f"walk_cuda needs CUDA tensors, got {dev}")
-    _validate(clusters, tri_shade, q, cull, recull_every)
-    block, aabb = clusters["block"], clusters["aabb"]
-    plane, root = clusters["plane"], clusters["root"]
-    r, ts = q.origin.shape[0], q.tile
+    _validate(clusters, tri_shade, q, cull, recull_every, max_trips)
+    block, r, ts = clusters["block"], q.origin.shape[0], q.tile
     ncg, _, csize = block.shape
-    f32, i32 = torch.float32, torch.int32
-    lib = load_library()
-    p = lambda x: x.data_ptr()  # noqa: E731
-    t = torch.empty((r,), dtype=f32, device=dev)
-    code = torch.empty((r,), dtype=i32, device=dev)
-    iters = torch.empty((r // ts,), dtype=i32, device=dev)
-    tests = torch.empty((r // ts,), dtype=i32, device=dev)
-    ray_tests = torch.empty((r // ts,), dtype=i32, device=dev)
-    counts = (p(iters), p(tests), p(ray_tests))
+    p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    out = _outputs(r, r // ts, dev, not any_hit)
+    if rows and not any_hit:
+        out["rows"] = torch.empty((r, 32), dtype=torch.float32, device=dev)
     common = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
-              p(q.ignore_mesh), r, ts, p(root), p(aabb), p(plane), p(block),
-              ncg, csize)
-    walk = (_CULL_CODE[cull], int(pretest), recull_every)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if any_hit:
-            rc = lib.rt_any_hit(*common, *walk, p(t), p(code), *counts,
-                                stream)
-            out = WalkOut(t=t, code=code, iters=iters, tests=tests,
-                          ray_tests=ray_tests)
-        else:
-            u = torch.empty((r,), dtype=f32, device=dev)
-            v = torch.empty((r,), dtype=f32, device=dev)
-            tri = torch.empty((r,), dtype=i32, device=dev)
-            srows = (torch.empty((r, 32), dtype=f32, device=dev) if rows
-                     else None)
-            rc = lib.rt_nearest_hit(*common, p(tri_shade), *walk, p(t),
-                                    p(code), p(u), p(v), p(tri),
-                                    p(srows) if rows else None, *counts,
-                                    stream)
-            out = WalkOut(t=t, code=code, u=u, v=v, tri=tri, rows=srows,
-                          iters=iters, tests=tests, ray_tests=ray_tests)
-    if rc != 0:
-        raise RuntimeError(
-            f"walk kernel launch failed: {lib.rt_error_string(rc).decode()}")
-    LAUNCHES[kernel_name(any_hit, pretest)] += 1
-    return out
+              p(q.ignore_mesh), r, ts, p(clusters["root"]),
+              p(clusters["aabb"]), p(clusters["plane"]), p(block), ncg, csize)
+    walk = (_CULL_CODE[cull], int(pretest), recull_every, max_trips)
+    counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
+    if any_hit:
+        args = (*common, *walk, p(out["t"]), p(out["code"]), *counts)
+    else:
+        args = (*common, p(tri_shade), *walk, p(out["t"]), p(out["code"]),
+                p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows")),
+                *counts)
+    _launch(kernel_name(any_hit, pretest, max_trips > 0),
+            "rt_any_hit" if any_hit else "rt_nearest_hit", args, dev)
+    return WalkOut(**out)
+
+
+def prepick_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+                 picks: int):
+    """Launch the prepick walk kernel of ``csrc/walk.cu`` on the current
+    stream: at most ``picks`` clusters per tile, drained into shared memory
+    before the walk.  Replaces ``raytpu/kernels/fused.py``'s
+    ``_prepick_kernel``; see the source for what bounds it on the card."""
+    dev = q.origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"prepick_cuda needs CUDA tensors, got {dev}")
+    _validate(clusters, tri_shade, q, cull, picks=picks)
+    block, r, ts = clusters["block"], q.origin.shape[0], q.tile
+    ncg, _, csize = block.shape
+    p = lambda x: x.data_ptr()  # noqa: E731
+    out = _outputs(r, r // ts, dev, not any_hit)
+    head = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
+            p(q.ignore_mesh), r, ts, p(clusters["root"]),
+            p(clusters["aabb"]), p(block), ncg, csize, _CULL_CODE[cull],
+            picks, p(out["t"]), p(out["code"]))
+    winner = () if any_hit else (p(out["u"]), p(out["v"]), p(out["tri"]))
+    counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
+    _launch(kernel_name(any_hit, prepick=True),
+            "rt_prepick_any_hit" if any_hit else "rt_prepick_nearest",
+            (*head, *winner, *counts), dev)
+    return WalkOut(**out)

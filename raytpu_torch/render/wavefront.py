@@ -19,12 +19,18 @@ two-pass wavefront over ray levels:
    ``Quantize.BOUNCE`` replicates that, ``FINAL`` only rounds the
    framebuffer write, ``NONE`` is full fp32.
 
-Transparency, supersampling, the debug channels and differentiable renders
-are not ported yet; asking for them raises ``NotImplementedError``.
+Differentiable mode (``cfg.differentiable``) detaches the discrete
+search, inputs and outputs alike, and recomputes (u, v, t) from the hit
+triangle's gathered row, so gradients reach the scene parameters through
+shading and the row gather, never through the walk (``_trace_level``).
+
+Transparency, supersampling and the debug channels are not ported yet;
+asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,6 +38,7 @@ import torch
 from raytpu_torch.config import Quantize, RenderConfig, RenderMode
 from raytpu_torch.accel.traverse import nearest_hit
 from raytpu_torch.core.camera import Camera, camera_rays
+from raytpu_torch.core.intersect import moller_trumbore_safe
 from raytpu_torch.core.math3d import normalize, reflect
 from raytpu_torch.core.xna import quantize_color
 from raytpu_torch.scene import lights as lights_mod
@@ -75,15 +82,8 @@ def check_supported(scene: FlatScene, cfg: RenderConfig):
     if cfg.shadow_clearance:
         raise _unported("shadow_clearance",
                         "queue 1 item 5 (the other query backends)")
-    if cfg.differentiable:
-        raise _unported("differentiable rendering",
-                        "queue 1 item 6 (differentiable rendering)")
-    if cfg.cull_prepick:
-        raise _unported("cull_prepick", "queue 2 item 1 (prepick walk)")
     if cfg.cull_chunk > 1:
         raise _unported("cull_chunk > 1", "queue 2 item 2 (walk opt-ins)")
-    if cfg.cull_phase1:
-        raise _unported("cull_phase1", "queue 2 item 4 (trip budget)")
 
 
 def shade_row_views(s, mesh_as_value: bool = False):
@@ -108,6 +108,52 @@ def shade_row_views(s, mesh_as_value: bool = False):
         "color": s[..., 27:31],
         "mesh": mesh,
     }
+
+
+class _GatherRowsGeo(torch.autograd.Function):
+    """``table[tri]`` whose backward scatters only the geometry channels
+    (``_gather_rows_geo``, raytpu/render/wavefront.py:97-126).
+
+    The cotangent of the non-geometry channels (normals, uv, color, mesh:
+    scene constants under GEOMETRY fits) is dropped and the scatter-add runs
+    on a (T, 12) table (v1 e1 e2 | snormal) instead of (T, 32).  Used when
+    ``cfg.grad_channels == "geometry"`` (exactness contract in config.py).
+    ``tri`` holds no negative index (``_gather_tri`` maps misses)."""
+
+    @staticmethod
+    def forward(ctx, table, tri):
+        ctx.save_for_backward(tri)
+        ctx.rows = table.shape[0]
+        return table[tri]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tri,) = ctx.saved_tensors
+        with torch.profiler.record_function("geo_rows_scatter_add"):
+            packed = torch.cat([ct[..., 0:9], ct[..., 24:27]], dim=-1)
+            z = ct.new_zeros((ctx.rows, 12)).index_add_(
+                0, tri.reshape(-1), packed.reshape(-1, 12))
+        zeros = lambda n: ct.new_zeros((ctx.rows, n))  # noqa: E731
+        return torch.cat([z[:, 0:9], zeros(15), z[:, 9:12], zeros(5)],
+                         dim=-1), None
+
+
+def _gather_tri(scene: FlatScene, tri, grad_channels: str = "all"):
+    """The hit triangles' shade-row views, differentiable in ``tri_shade``
+    (raytpu/render/wavefront.py:129-151).  A miss (``tri`` -1) reads the
+    last row, as the reference's wrapping gather does: finite values whose
+    cotangent is zero, and never a negative index for ``index_add_``."""
+    rows = scene.tri_shade.shape[0]
+    idx = torch.where(tri < 0, rows - 1, tri).long()
+    if grad_channels == "geometry":
+        return shade_row_views(_GatherRowsGeo.apply(scene.tri_shade, idx))
+    return shade_row_views(scene.tri_shade[idx])
+
+
+def _detached(scene: FlatScene) -> FlatScene:
+    """The scene as the walk sees it in differentiable mode: the cluster
+    tables are the bake's (never trained), the shade rows detached."""
+    return dataclasses.replace(scene, tri_shade=scene.tri_shade.detach())
 
 
 def _surface_color(scene: FlatScene, cfg: RenderConfig, tri_data, mat, u, v):
@@ -161,6 +207,7 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
     the walk's tile beams."""
     total = torch.zeros_like(frag_pos)
     lt = scene.lights
+    wscene = _detached(scene) if cfg.differentiable else scene
     for i in range(scene.num_lights):
         sdir, sdist = lights_mod.light_shadow_query(lt, i, frag_pos)
         contrib = lights_mod.light_contrib(lt, i, frag_pos, normal)
@@ -174,16 +221,20 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
         reverse = (cfg.shadow_from_light
                    and i < len(scene.light_kinds)
                    and scene.light_kinds[i] == lights_mod.SPOT)
+        # Shadow visibility is discrete: in differentiable mode the query
+        # sees detached inputs (its outputs carry no gradient).
         if reverse:
             shadow = query(
-                scene, lt["position"][i].expand_as(frag_pos),
-                torch.where(lit[..., None], -sdir, _NAN),
-                ignore_tri=hit_tri, cull="reverse", t_max=sdist,
+                wscene, lt["position"][i].detach().expand_as(frag_pos),
+                torch.where(lit[..., None], -sdir, _NAN).detach(),
+                ignore_tri=hit_tri, cull="reverse", t_max=sdist.detach(),
                 any_hit=True)
         else:
             shadow = query(
-                scene, frag_pos, torch.where(lit[..., None], sdir, _NAN),
-                ignore_tri=hit_tri, cull=True, t_max=sdist, any_hit=True)
+                wscene, frag_pos.detach(),
+                torch.where(lit[..., None], sdir, _NAN).detach(),
+                ignore_tri=hit_tri, cull=True, t_max=sdist.detach(),
+                any_hit=True)
         obstructed = shadow.hit & (shadow.t < sdist)
         light_amount = torch.where(obstructed, 1.0, 0.0)
         total = total + contrib * (1.0 - light_amount)[..., None]
@@ -195,18 +246,42 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
     """One wavefront level: intersect + shade + spawn the reflection child."""
     # Dead lanes become non-finite: they never hit and stay out of the
     # walk's tile beams.
-    hit, krows = query(
-        scene, rays.origin,
-        torch.where(rays.alive[..., None], rays.direction, _NAN),
-        ignore_tri=rays.ignore_tri, ignore_mesh=rays.ignore_mesh, cull=True,
-        with_rows=True)
+    direction = torch.where(rays.alive[..., None], rays.direction, _NAN)
+    qargs = dict(ignore_tri=rays.ignore_tri, ignore_mesh=rays.ignore_mesh,
+                 cull=True)
+    soft_vis = None
+    if cfg.differentiable:
+        # Detach the discrete search, inputs and outputs, and recompute
+        # (u, v, t) from the hit triangle's row: the same formula on the
+        # same inputs gives the same forward values, and gradients flow
+        # through the gathered row (raytpu/render/wavefront.py:390-451).
+        # The query asks for no rows; shading reads the differentiable
+        # gather, whose misses take the last row.
+        hit = query(_detached(scene), rays.origin.detach(),
+                    direction.detach(), **qargs)
+        td = _gather_tri(scene, hit.tri, cfg.grad_channels)
+        u_d, v_d, t_d = moller_trumbore_safe(rays.origin, rays.direction,
+                                             td["v1"], td["e1"], td["e2"])
+        if cfg.soft_tau > 0.0:
+            # Straight-through silhouette gradients: the forward is the
+            # exact hard visibility; the backward sees a sigmoid of the
+            # barycentric edge distance.
+            edge = torch.minimum(torch.minimum(u_d, v_d), 1.0 - u_d - v_d)
+            soft = torch.sigmoid(edge / cfg.soft_tau)
+            soft_vis = soft - soft.detach()
+        hit = hit._replace(u=torch.where(hit.hit, u_d, 0.0),
+                           v=torch.where(hit.hit, v_d, 0.0),
+                           t=torch.where(hit.hit, t_d, hit.t))
+    else:
+        hit, krows = query(scene, rays.origin, direction, with_rows=True,
+                           **qargs)
+        td = shade_row_views(krows, mesh_as_value=True)
     mask = hit.hit & rays.alive
     tri = hit.tri
-    td = shade_row_views(krows, mesh_as_value=True)
     mat = scene.mesh_material[td["mesh"]]
 
-    # Fragment normal (RayTracer.cs:520-531).  Miss rows are all-zero, so
-    # their normals are NaN; every use below is masked.
+    # Fragment normal (RayTracer.cs:520-531).  Hard renders' miss rows are
+    # all-zero, so their normals are NaN; every use below is masked.
     interp = scene.mat_interp_normals[mat]
     n_lerped = normalize(
         td["n1"]
@@ -243,9 +318,14 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
             alive=mask & (b != 0.0).any(-1),
         )
     m3 = mask[..., None]
-    record = LevelRecord(mask=mask, a=torch.where(m3, a, 0.0),
-                         b=torch.where(m3, b, 0.0))
-    return record, child
+    a = torch.where(m3, a, 0.0)
+    b = torch.where(m3, b, 0.0)
+    if soft_vis is not None:
+        # Zero-forward residual: hit lanes scaled by (1 + soft - sg(soft)),
+        # so silhouette-adjacent hits carry d(pixel)/d(edge distance).
+        stm = (1.0 + torch.where(mask, soft_vis, 0.0))[..., None]
+        a, b = a * stm, b * stm
+    return LevelRecord(mask=mask, a=a, b=b), child
 
 
 def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,

@@ -172,4 +172,6 @@ def flatten_scene(scene: Scene, cluster_size: int = 128,
         ),
         has_transparent=bool(any(m.transparent for m in materials)),
         has_textures=bool(tex_list),
+        has_dual_branch=bool(any(
+            m.transparent and m.reflectiveness > 0.0 for m in materials)),
     )

@@ -124,6 +124,10 @@ class FlatScene:
     light_kinds: tuple = ()
     has_transparent: bool = False
     has_textures: bool = False
+    # A material both reflective and transparent: such a scene's levels
+    # double ([reflection | refraction]); a fit that trains mat_reflect
+    # sets it (diff/fit.py).
+    has_dual_branch: bool = False
 
     @property
     def device(self) -> torch.device:

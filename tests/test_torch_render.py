@@ -112,15 +112,11 @@ def test_walk_opt_ins_render_the_same_image(rendered):
 @pytest.mark.parametrize("change", [
     dict(use_multisampling=True),
     dict(render_mode=RenderMode.NORMALS),
-    dict(differentiable=True),
     dict(shadow_clearance=True),
     dict(intersector=Intersector.BRUTE),
     dict(intersector=Intersector.TILED),
     dict(intersector=Intersector.OCTREE),
-    dict(cull_nbuf=2),
     dict(cull_chunk=2),
-    dict(cull_phase1=4),
-    dict(cull_prepick=8),
     dict(tri_block=1024),
     dict(brute_force_max_tris=0),
 ])
@@ -140,3 +136,27 @@ def test_unported_scene_and_entry_points_raise():
         render_image(flat, CFG, progress=lambda done, total: None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sphere_and_plane("torch").flatten(device="cpu", cluster_size=64)
+
+
+@pytest.mark.parametrize("change", [dict(cull_prepick=8),
+                                    dict(cull_phase1=2),
+                                    dict(cull_phase1=2, cull_pretest=True,
+                                         cull_recull=2),
+                                    dict(cull_prepick=8, cull_nbuf=2)])
+def test_render_with_overflow_strategies(change):
+    """A render through the prepick walk or the phase-1 compaction
+    (test_torch_overflow.py) is the default render; the settings the
+    prepick walk refuses raise ``ValueError`` from the render too."""
+    cfg = dataclasses.replace(CFG, width=24, height=24, tile_pixels=24 * 24,
+                              cull_tile=64)
+    flat = sphere_and_plane("torch", textured=True, light="both").flatten(
+        device="cpu", cluster_size=16)
+    cam = Camera(position=(3.0, 16.0, 32.0))
+    base = render_image(flat, cfg, cam)
+    img = render_image(flat, dataclasses.replace(cfg, **change), cam)
+    assert (base.max(-1).values > 0).float().mean() > 0.3
+    assert torch.equal(img, base)
+    if "cull_prepick" in change:
+        with pytest.raises(ValueError, match="prepick"):
+            render_image(flat, dataclasses.replace(
+                cfg, cull_pretest=True, **change), cam)
