@@ -5,14 +5,19 @@
 Phases, each printing its lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: compile the walk kernels (``raytpu_torch/kernels/csrc/walk.cu``);
+2. build: compile the walk kernels (``raytpu_torch/kernels/csrc/walk.cu``
+   and ``subwalk.cu``, one ``nvcc`` each, started together);
 3. small: every walk kernel variant against its plain PyTorch version, bit
    for bit, trip counts and resolved flags included (nearest and any-hit;
    pretest on and off; re-cull every 0, 2 and 6 trips; the prepick walk
    with 2, 3 and 64 picks; trip budgets 1 and 4; cluster sizes 16 and 128;
-   ignore ids, t bounds, NaN bounds and non-finite rays), the overflow
-   strategies on the card against the CPU, and small renders, baked and
-   instanced, on the card against the CPU;
+   the subcluster walk at cluster sizes 64 and 32 with cull True, False
+   and "reverse", planes on and off, the gate on and off, 1, 2 and 3 picks
+   a trip and trip budgets 1 and 4; the classic walk with 2 and 3 picks a
+   trip; ignore ids, t bounds, NaN bounds and non-finite rays), the routing
+   on a subcluster bake, the overflow strategies on the card against the
+   CPU, and small renders, baked and instanced, on the card against the
+   CPU;
 4. frame: bench.py's ~1M-triangle terrain at 1024x1024 through
    ``render_rays`` with its launch counters checked, then the frame's
    queries through the kernels and the plain walk;
@@ -20,28 +25,49 @@ Phases, each printing its lines:
    multiples of 90 degrees, ~4M triangles in the world) through
    ``render_image_instanced`` at 1024x1024 with one reflection, the
    pretest variant's launch counter checked; every walk call of the frame
-   held against the plain walk;
-6. pretest frame: the bench frame with ``cull_pretest=True,
+   held against the plain walk on every 128th whole tile;
+6. subcluster frame: the bench frame baked at cluster sizes 64 and 32
+   (bench.py's BENCH_CSIZE): the defaults take the subcluster walk, every
+   walk call against the plain walk, the image the 128 frame's up to
+   exact-t ties; the gate and 2 and 4 picks a trip on the frame's queries;
+   the gated and ``cull_chunk=4`` renders at 32 and the ``cull_chunk=2``
+   render at 128 (the classic walk's group kernel), each counted and the
+   same image;
+7. flagship: ``__graft_entry__.py``'s flagship scene (transparent,
+   textured, two lights) at 1024x1024 with entry()'s three bounces, baked
+   at 32 and 128: every query through both bakes (the same hits, exact-t
+   ties counted), every walk call against the plain walk, frame ms and live
+   rays/s with the slots and live rays per level; one step of the dryrun's
+   fit on the 32 bake at 512x512; card against CPU gradients at 32x32;
+8. instanced 32: the instanced frame from a cluster_size=32 bake with the
+   defaults (the block walk) and with the pretest and re-cull off (the
+   subcluster walk), gate off and on, calls against the plain walk on every
+   128th tile, frame ms in turns against the 128 bake (and both bakes'
+   block walks with the re-cull off);
+9. pretest frame: the bench frame with ``cull_pretest=True,
    cull_recull=6``, counters checked, the image equal to the default
    frame's, its queries through the kernels and the plain walk;
-7. overflow: the bench frame with ``cull_prepick`` 64 and 8 and
-   ``cull_phase1`` 2 and 8: the bounded walk's counter and, where the
-   budget overflows, the finishing walk's (the rescue, phase 2) checked,
-   the image equal to the default frame's, every walk call against its
-   plain version;
-8. fit: bench.py's backward workload (512x512 gradient steps on the
-   terrain, geometry, then the textured terrain's atlas, bilinear) with
-   step times, backward rays/s and a step's split; a 6-step Adam fit with
-   re-bakes from a height-scaled terrain; card against CPU gradients on a
-   small scene;
-9. times: ms per frame and rays/s (bench frame by walk setting, in turns;
-   instanced frame, counting every query's live rays, with the walk's
-   defaults, with the re-cull, the pretest or both turned off, and with
-   the overflow strategies), ms per walk call, kernels against the plain walk,
-   and the overflow strategies' calls with their bounds and overflow shares;
-10. profile: the bench frame's spread and torch.profiler breakdown, and the
+10. overflow: the bench frame with ``cull_prepick`` 64 and 8 and
+    ``cull_phase1`` 2 and 8: the bounded walk's counter and, where the
+    budget overflows, the finishing walk's (the rescue, phase 2) checked,
+    the image equal to the default frame's, every walk call against its
+    plain version;
+11. fit: bench.py's backward workload (512x512 gradient steps on the
+    terrain, geometry, then the textured terrain's atlas, bilinear) with
+    step times, backward rays/s and a step's split; a 6-step Adam fit with
+    re-bakes from a height-scaled terrain; card against CPU gradients on a
+    small scene;
+12. times: ms per frame and rays/s (bench frame by walk setting, in turns;
+    instanced frame, counting every query's live rays, with the walk's
+    defaults, with the re-cull, the pretest or both turned off, and with
+    the overflow strategies), ms per walk call, kernels against the plain
+    walk, and the overflow strategies' calls with their bounds and overflow
+    shares; then the subcluster and chunked bench frames in turns and their
+    calls;
+13. profile: the bench frame's spread and torch.profiler breakdown, the
     instanced frame's device ms per kernel variant, busy share and the
-    host syncs of its per-instance pass skips.
+    host syncs of its per-instance pass skips, and the flagship frame's
+    (32 bake) device ms: the walks against the shading's kernels.
 
 Then one JSON line with the kernels (time, plain time, launches, trips per
 tile and the least time the card could take for the same work) and, last,
@@ -119,6 +145,35 @@ TIMED_OVERFLOW = (("cull_prepick=64", {"cull_prepick": 64}),
                   ("cull_phase1=2", {"cull_phase1": 2}),
                   ("cull_phase1=8", {"cull_phase1": 8}))
 NO_OPT_INS = {"cull_pretest": False, "cull_recull": 0}
+# The instanced frames' walk calls are held against the plain walk on every
+# INSTANCED_TILE_STRIDE-th whole tile (tiles walk independently; the full
+# plain walk of the frame's reflection calls takes ~500 s).
+INSTANCED_TILE_STRIDE = 128
+# bench.py's BENCH_CSIZE settings of the subcluster frames, and the
+# subcluster walk's shapes run on their queries: the gate and multi-block
+# trips.
+SUB_FRAME_SIZES = (64, 32)
+SUB_FRAME_WALKS = (("gate", {"gate": True}), ("chunk_k=2", {"chunk_k": 2}),
+                   ("chunk_k=4", {"chunk_k": 4}))
+# What the gate keeps: every output but the counters, bit for bit.  More
+# picks a trip keep the hits and their t (an exact-t tie between blocks of
+# one trip may go to the earlier pick).
+GATE_KEEPS = ("t", "code", "u", "v", "tri", "rows", "resolved")
+# cull_chunk of the chunked bench renders: the classic walk at 128 and the
+# subcluster walk at 32.
+CHUNK_CLASSIC = 2
+CHUNK_SUB = 4
+# The flagship: __graft_entry__.py's scene and entry()'s camera and three
+# bounces at full size, baked at cluster sizes 32 (the dryrun's bake) and
+# 128; one step of the dryrun's fit (its fields, Adam 1e-2, soft_tau 0.01,
+# one reflection) at 512x512; card against CPU gradients at 32x32.
+FLAGSHIP_RES = 1024
+FLAGSHIP_REFLECTIONS = 3
+FLAGSHIP_CAMERA = (0.0, 16.0, 32.0)
+FLAGSHIP_SIZES = (32, 128)
+FLAGSHIP_FIT_RES = 512
+FLAGSHIP_GRAD_RES = 32
+FLAGSHIP_FIELDS = ("tri_v1", "textures", "mat_reflect")
 # The fit workload: bench.py's backward resolution and timed steps; the
 # Adam fit's steps, re-bake period, height scale and learning rate.
 FIT_RES = 512
@@ -177,11 +232,15 @@ def _once_ms(fn):
 
 def _walks(walk):
     """The kernel and the plain version of the walk that the options
-    ``walk`` name: the prepick walk when they give ``picks``."""
+    ``walk`` name: the prepick walk when they give ``picks``, the
+    subcluster walk when they give ``gate`` (``nearest_hit_fused`` always
+    passes it to that walk), else the classic walk."""
     from raytpu_torch.kernels import fused
 
     if "picks" in walk:
         return fused.prepick_cuda, fused.prepick_plain
+    if "gate" in walk:
+        return fused.subwalk_cuda, fused.subwalk_plain
     return fused.walk_cuda, fused.walk_plain
 
 
@@ -197,6 +256,11 @@ def read_launches():
 
     torch.cuda.synchronize()
     return dict(fused.LAUNCHES)
+
+
+def _ran(launches):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in launches.items() if v}
 
 
 def compare_walks(clusters, tri_shade, q, what, record, got=None, **walk):
@@ -246,18 +310,24 @@ def compare_walks(clusters, tri_shade, q, what, record, got=None, **walk):
     return err, plain_ms
 
 
-def walk_bound(q, out, ncg, csize, walk):
+def walk_bound(q, out, clusters, walk):
     """The least time the card could take for one walk call: the
-    ray-triangle pairs the function needs (each tested cluster's unresolved
-    rays, the walk's ``ray_tests``, times its triangles) at OPS_PAIR
+    ray-triangle pairs the function needs (each tested cluster's or, in the
+    subcluster walk, each sibling pass's unresolved rays, the walk's
+    ``ray_tests``, times the triangles of a cluster or a pass) at OPS_PAIR
     operations each; bytes from each input read once and each output
-    written once (the 18 used rows of every cluster block counted once).
-    The walk's own overheads (entry bounds of the prologue and of each
-    re-cull, the per-trip pick, the pretest) are counted apart in
-    ``overhead_ops`` and are not part of the bound."""
+    written once (the 18 used rows of every cluster block and the cull
+    tables counted once).  The walk's own overheads (entry bounds of the
+    prologue and of each re-cull, the per-trip pick, the pretest) are
+    counted apart in ``overhead_ops`` and are not part of the bound."""
+    from raytpu_torch.accel.clusters import leaves_per_block
+
     any_hit, pretest = walk["any_hit"], walk.get("pretest", False)
     recull = walk.get("recull_every", 0)
     rows = walk.get("rows", "picks" not in walk) and not any_hit
+    ncg, _, csize = clusters["block"].shape
+    subk = leaves_per_block(clusters) if "gate" in walk else 1
+    lanes = csize // subk  # triangles per tested cluster or pass
     ts = q.tile
     r, nt = q.origin.shape[0], q.origin.shape[0] // ts
     live = (torch.isfinite(q.origin).all(-1)
@@ -266,11 +336,11 @@ def walk_bound(q, out, ncg, csize, walk):
     trips = out.iters.double()
     reculls = ((trips - 1).clamp(min=0) // recull if recull
                else torch.zeros_like(trips))
-    ops = float(out.ray_tests.double().sum()) * csize * OPS_PAIR[any_hit]
+    ops = float(out.ray_tests.double().sum()) * lanes * OPS_PAIR[any_hit]
     overhead = float((trips * ncg * OPS_PICK
-                      + (live > 0) * (1 + reculls) * ncg * OPS_ENTRY
+                      + (live > 0) * (1 + reculls) * ncg * subk * OPS_ENTRY
                       + (trips * live * OPS_PRETEST if pretest else 0)).sum())
-    nbytes = (r * 36 + ncg * (6 + 5 + 18 * csize) * 4 + 32 + nt * 12
+    nbytes = (r * 36 + ncg * (6 + 11 * subk + 18 * csize) * 4 + 32 + nt * 12
               + r * (12 if any_hit else 24))
     if rows:
         nbytes += r * 128 + int((out.code >= 0).sum()) * 128
@@ -362,6 +432,103 @@ SMALL_WALKS = [(a, p, r) for a in (False, True)
 # the classic walk's trip budget, small enough to overflow and not.
 SMALL_PICKS = (2, 3, 64)
 SMALL_TRIPS = (1, 4)
+# The small subcluster comparisons: cluster sizes, picks per trip, trip
+# budgets; and the classic walk's chunked shapes (chunk_k, pretest,
+# re-cull).
+SUB_SIZES = (64, 32)
+SMALL_CHUNKS = (1, 2, 3)
+SMALL_CLASSIC_CHUNKS = ((2, False, 0), (3, False, 0), (2, True, 2),
+                        (3, True, 6))
+
+
+def _small_rays(rng, n, scene, dev):
+    """The small comparisons' rays: origins above the plane, unit
+    directions, a NaN origin, an infinite and a NaN direction (with a NaN t
+    bound, as instanced shadow queries give dead lanes), random ignore ids
+    and t bounds."""
+    o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1]) + 0.5
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o[7, 0] = np.nan
+    d[11, 2] = np.inf
+    d[300, :] = np.nan
+    tm = rng.uniform(2.0, 30.0, size=n).astype(np.float32)
+    tm[300] = np.nan
+    itri = rng.integers(-1, scene.num_tris, size=n).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (o, d, itri, tm))
+
+
+def _small_subcluster(dev, record, note):
+    """The subcluster walk at cluster sizes 64 and 32 against its plain
+    version (nearest and any-hit; cull True, False and "reverse"; planes
+    on and off; the gate on and off; 1, 2 and 3 picks a trip; trip budgets
+    1 and 4), the classic walk's chunked shapes, and the routing on a
+    subcluster bake."""
+    from raytpu_torch.kernels.fused import nearest_hit_fused, pack_query
+
+    rng = np.random.default_rng(1)
+    print("[small] subcluster and chunked walks vs their plain versions")
+    for csize in SUB_SIZES:
+        scene = _small_scene(csize, dev)
+        tables = (scene.clusters, scene.tri_shade)
+        o, d, itri, tmax = _small_rays(rng, 4096, scene, dev)
+        what = f"csize {csize}"
+        for any_hit in (False, True):
+            q = pack_query(o, d, ignore_tri=itri,
+                           t_max=tmax if any_hit else None,
+                           tile_size=RAYS_PER_TILE)
+            for cull in (True, False, "reverse"):
+                for plane in (True, False):
+                    for gate in (False, True):
+                        for chunk in SMALL_CHUNKS:
+                            note(any_hit, False, compare_walks(
+                                *tables, q, what, record, cull=cull,
+                                any_hit=any_hit, plane=plane, gate=gate,
+                                chunk_k=chunk)[0], sub=True, gate=gate,
+                                chunk=chunk > 1)
+            for trips in SMALL_TRIPS:
+                for gate, chunk in ((False, 1), (True, 3)):
+                    note(any_hit, False, compare_walks(
+                        *tables, q, what + " max_trips", record, cull=True,
+                        any_hit=any_hit, gate=gate, chunk_k=chunk,
+                        max_trips=trips)[0], budget=True, sub=True,
+                        gate=gate, chunk=chunk > 1)
+        # The routing on a subcluster bake: the pretest, the re-cull and
+        # the prepick walk take the block walk, without planes.
+        for opts, want in (({}, "nearest_sub"), ({"pretest": True},
+                                                 "nearest_pretest"),
+                           ({"recull_every": 6}, "nearest"),
+                           ({"prepick": 64}, "nearest_prepick"),
+                           ({"any_hit": True}, "any_hit_sub")):
+            reset_launches()
+            nearest_hit_fused(scene, o, d, tile_size=RAYS_PER_TILE, **opts)
+            ran = _ran(read_launches())
+            print(f"  {what} routing {opts}: launches {ran}")
+            if set(ran) != {want}:
+                raise AssertionError(f"routing {opts} launched {ran}")
+    for csize in (16, 128):
+        scene = _small_scene(csize, dev)
+        tables = (scene.clusters, scene.tri_shade)
+        o, d, itri, tmax = _small_rays(rng, 4096, scene, dev)
+        for any_hit in (False, True):
+            q = pack_query(o, d, ignore_tri=itri,
+                           t_max=tmax if any_hit else None,
+                           tile_size=RAYS_PER_TILE)
+            for chunk, pretest, recull in SMALL_CLASSIC_CHUNKS:
+                note(any_hit, pretest, compare_walks(
+                    *tables, q, f"csize {csize} chunk", record, cull=True,
+                    any_hit=any_hit, chunk_k=chunk, pretest=pretest,
+                    recull_every=recull)[0], chunk=True)
+            note(any_hit, False, compare_walks(
+                *tables, q, f"csize {csize} no planes", record, cull=True,
+                any_hit=any_hit, plane=False)[0])
+            # The subcluster walk on a bake of one leaf per block (the
+            # reference's tlane walk at subk 1), gate on.
+            note(any_hit, False, compare_walks(
+                *tables, q, f"csize {csize} layout t", record, cull=True,
+                any_hit=any_hit, gate=True, chunk_k=2)[0], sub=True,
+                gate=True, chunk=True)
 
 
 def phase_small(dev, record):
@@ -375,30 +542,16 @@ def phase_small(dev, record):
 
     err = {}
 
-    def note(any_hit, pretest, e, budget=False, prepick=False):
-        name = kernel_name(any_hit, pretest, budget, prepick)
+    def note(any_hit, pretest, e, budget=False, prepick=False, **kind):
+        name = kernel_name(any_hit, pretest, budget, prepick, **kind)
         err[name] = max(err.get(name, 0.0), e)
 
     rng = np.random.default_rng(0)
-    n = 4096
     print("[small] kernel vs plain walk on the card, sphere over plane")
     for csize in (16, 128):
         scene = _small_scene(csize, dev)
         tables = (scene.clusters, scene.tri_shade)
-        o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
-        o[:, 1] = np.abs(o[:, 1]) + 0.5
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        o[7, 0] = np.nan
-        d[11, 2] = np.inf
-        d[300, :] = np.nan
-        tm = rng.uniform(2.0, 30.0, size=n).astype(np.float32)
-        tm[300] = np.nan  # a dead lane's NaN bound, as in instanced shadows
-        o_t = torch.from_numpy(o).to(dev)
-        d_t = torch.from_numpy(d).to(dev)
-        itri = torch.from_numpy(
-            rng.integers(-1, scene.num_tris, size=n).astype(np.int32)).to(dev)
-        tmax = torch.from_numpy(tm).to(dev)
+        o_t, d_t, itri, tmax = _small_rays(rng, 4096, scene, dev)
         what = f"csize {csize}"
         for cull in (True, False):
             q = pack_query(o_t, d_t, tile_size=RAYS_PER_TILE)
@@ -460,6 +613,7 @@ def phase_small(dev, record):
                     raise AssertionError(f"{what} {strategy}: the card "
                                          "differs from the CPU")
 
+    _small_subcluster(dev, record, note)
     cfg = RenderConfig(width=64, height=64, max_reflections=2,
                        quantize=Quantize.NONE, tile_pixels=64 * 64)
     cpu = render_image(_small_scene(16, "cpu"), cfg)
@@ -559,12 +713,14 @@ def plain_query(cfg):
 
 @contextlib.contextmanager
 def recording_walks():
-    """Every ``walk_cuda`` and ``prepick_cuda`` call made inside:
-    (clusters, tri_shade, query, options, output), in launch order."""
+    """Every ``walk_cuda``, ``subwalk_cuda`` and ``prepick_cuda`` call made
+    inside: (clusters, tri_shade, query, options, output), in launch
+    order."""
     from raytpu_torch.kernels import fused
 
     calls = []
     launchers = {"walk_cuda": fused.walk_cuda,
+                 "subwalk_cuda": fused.subwalk_cuda,
                  "prepick_cuda": fused.prepick_cuda}
 
     def recorder(launch):
@@ -583,20 +739,43 @@ def recording_walks():
             setattr(fused, name, launch)
 
 
-def check_recorded(calls, what, record):
-    """Hold every recorded walk call against the plain walk.  Returns the
-    per-call rows (options, max abs err, plain ms, trips, bound)."""
+def tile_subset(q, out, stride):
+    """Every ``stride``-th whole tile of the walk call ``q`` and its
+    kernel output ``out``: tiles walk independently, so the plain walk on
+    those tiles alone must give their outputs and counters bit for bit."""
+    from raytpu_torch.kernels.fused import _PER_TILE, Query
+
+    ts = q.tile
+    nt = q.origin.shape[0] // ts
+    tiles = torch.arange(0, nt, stride, device=q.origin.device)
+    rays = (tiles[:, None] * ts + torch.arange(
+        ts, device=q.origin.device)).reshape(-1)
+    sub = Query(*(a[rays] for a in q[:5]), ts)
+    part = out._replace(**{f: getattr(out, f)[tiles if f in _PER_TILE
+                                              else rays]
+                           for f in out._fields
+                           if getattr(out, f) is not None})
+    return sub, part
+
+
+def check_recorded(calls, what, record, tile_stride=1):
+    """Hold every recorded walk call against the plain walk, on every
+    ``tile_stride``-th whole tile (1: all of them).  Returns the per-call
+    rows (options, max abs err, plain ms, trips, bound of the whole
+    call)."""
     out = []
     for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
-        err, plain_ms = compare_walks(clusters, tri_shade, q,
-                                      f"{what} call {i}", record, got=got,
+        cq, cgot = (q, got) if tile_stride == 1 else tile_subset(
+            q, got, tile_stride)
+        err, plain_ms = compare_walks(clusters, tri_shade, cq,
+                                      f"{what} call {i}", record, got=cgot,
                                       **kw)
-        ncg, _, csize = clusters["block"].shape
         out.append({"kw": kw, "err": err, "plain_ms": plain_ms,
+                    "plain_tiles": 1.0 / tile_stride,
                     "iters": got.iters, "out": got, "q": q,
                     "clusters": clusters,
                     "tri_shade": tri_shade,
-                    **walk_bound(q, got, ncg, csize, kw)})
+                    **walk_bound(q, got, clusters, kw)})
     return out
 
 
@@ -619,7 +798,7 @@ def phase_frame(dev, record):
     reset_launches()
     img = render_rays(flat, cfg, o, d)
     launches = read_launches()
-    print(f"  render_rays: launches {launches}")
+    print(f"  render_rays: launches {_ran(launches)}")
     if not (launches["nearest"] > 0 and launches["any_hit"] > 0):
         raise AssertionError(f"a walk kernel did not run: {launches}")
     nonblack = _check_image(img, "frame")
@@ -668,7 +847,7 @@ def phase_instanced(dev, record):
     reset_launches()
     img = prender.render_image_instanced(iscene, cfg, camera)
     launches = read_launches()
-    print(f"  render_image_instanced: launches {launches}")
+    print(f"  render_image_instanced: launches {_ran(launches)}")
     if launches["nearest_pretest"] <= 0:
         raise AssertionError(f"the pretest walk did not run: {launches}")
     if img.shape != (RES, RES, 3):
@@ -692,12 +871,14 @@ def phase_instanced(dev, record):
         raise AssertionError("two instanced renders differ")
     live_rays = int(sum(int(x) for x in live))
     print(f"  {len(calls)} walk calls, {len(live)} instanced queries, "
-          f"{live_rays} live rays")
-    checked = check_recorded(calls, "instanced", record)
+          f"{live_rays} live rays; calls held against the plain walk on "
+          f"every {INSTANCED_TILE_STRIDE}th tile")
+    checked = check_recorded(calls, "instanced", record,
+                             INSTANCED_TILE_STRIDE)
     record.append({"what": "instanced frame", "world_tris": world_tris,
                    "launches": launches, "walk_calls": len(calls),
                    "live_rays": live_rays, "nonblack": nonblack})
-    return iscene, cfg, camera, checked, launches, live_rays
+    return iscene, cfg, camera, checked, launches, live_rays, img
 
 
 def phase_pretest_frame(flat, cfg, rays, img_default, frame_rows, record):
@@ -717,7 +898,7 @@ def phase_pretest_frame(flat, cfg, rays, img_default, frame_rows, record):
     reset_launches()
     img = render_rays(flat, pcfg, o, d)
     launches = read_launches()
-    print(f"  render_rays: launches {launches}")
+    print(f"  render_rays: launches {_ran(launches)}")
     if not (launches["nearest_pretest"] > 0
             and launches["any_hit_pretest"] > 0):
         raise AssertionError(f"a pretest walk did not run: {launches}")
@@ -727,22 +908,10 @@ def phase_pretest_frame(flat, cfg, rays, img_default, frame_rows, record):
     checked = check_recorded(calls, "pretest frame", record)
     base = [r["out"] for r in frame_rows if not r["kw"]["any_hit"]][0]
     got = [r["out"] for r in checked if not r["kw"]["any_hit"]][0]
-    r = o.shape[0]
-    hit = base.code[:r] >= 0
-    same = (torch.equal(hit, got.code[:r] >= 0)
-            and _bits_equal(base.t[:r][hit], got.t[:r][hit]))
-    ties = hit & (base.tri[:r] != got.tri[:r])
-    differ = (img != img_default).any(-1)
-    print(f"  primary hits and t bit for bit the default's: {same}; "
-          f"exact-t ties won by another triangle: {int(ties.sum())}; pixels "
-          f"that differ from the default frame: {int(differ.sum())}, max "
-          f"{float((img - img_default).abs().max()):.3g}")
-    if not same or bool((differ & ~ties).any()):
-        raise AssertionError("the pretest frame differs from the default "
-                             "beyond exact-t ties")
+    ties, differ = _against_base(img, img_default, base, got, o.shape[0],
+                                 "pretest frame against the default")
     record.append({"what": "pretest frame", "launches": launches,
-                   "ties": int(ties.sum()),
-                   "pixels_differ": int(differ.sum())})
+                   "ties": ties, "pixels_differ": differ})
     return pcfg, checked, launches
 
 
@@ -798,10 +967,9 @@ def _timed_calls(calls, reps):
     comparison)."""
     rows = []
     for clusters, tri_shade, q, kw, got in calls:
-        ncg, _, csize = clusters["block"].shape
         row = {"kw": kw, "q": q, "out": got, "iters": got.iters,
                "clusters": clusters, "tri_shade": tri_shade,
-               **walk_bound(q, got, ncg, csize, kw)}
+               **walk_bound(q, got, clusters, kw)}
         row["kernel_ms"] = _kernel_ms(row, reps)
         rows.append(row)
     return rows
@@ -912,8 +1080,9 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
         "walk_bound_ms": b_sum, "calls": calls}
     print(f"  instanced frame {RES}x{RES}: {inst_ms:.3f} ms, {live_rays} "
           f"live rays ({live_rays / inst_ms * 1e3:.4g} rays/s); its "
-          f"{len(irows)} walk calls: kernel {k_sum:.3f} ms, plain walk "
-          f"{p_sum:.3f} ms, bound {b_sum:.3f} ms in all")
+          f"{len(irows)} walk calls: kernel {k_sum:.3f} ms, bound "
+          f"{b_sum:.3f} ms in all; plain walk {p_sum:.3f} ms on every "
+          f"{INSTANCED_TILE_STRIDE}th tile")
     for i, c in enumerate(calls):
         print(f"    call {i}: kernel {c['kernel_ms']:.3f} ms, bound "
               f"{c['bound_ms']:.3f} ms ({c['ops']:.4g} ops; overhead "
@@ -966,6 +1135,61 @@ def phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows, inst,
     return out
 
 
+def phase_sub_times(card, flat128, cfg, rays, sub, record):
+    """The subcluster and chunked bench frames in turns (each setting, then
+    all in reverse order), and their walk calls' kernel ms beside the
+    plain ms and bound."""
+    import dataclasses
+
+    from raytpu_torch.render.wavefront import render_rays
+
+    o, d = rays
+    frame_rays = 2 * RES ** 2
+    print(f"[times] {card}; subcluster and chunked bench frames")
+    frames = [("128", flat128, {}, {})]
+    frames += [(str(c), sub[c]["flat"], {}, {}) for c in SUB_FRAME_SIZES]
+    s32 = sub[SUB_FRAME_SIZES[-1]]["flat"]
+    frames += [("32 gate", s32, {}, {"gate": True})]
+    frames += [(f"32 cull_chunk={k}", s32, {"cull_chunk": k}, {})
+               for k in (2, 4)]
+    frames += [(f"128 cull_chunk={k}", flat128, {"cull_chunk": k}, {})
+               for k in (2, 4)]
+    ms = {name: [] for name, _, _, _ in frames}
+    for name, flat, change, walk in frames + frames[::-1]:
+        fcfg = dataclasses.replace(cfg, **change)
+        with walk_defaults(**walk):
+            ms[name].append(_cuda_ms(
+                lambda: render_rays(flat, fcfg, o, d), REPS))
+    out = {"frames": {k: {"turns_ms": v, "ms": statistics.mean(v),
+                          "rays_per_s": frame_rays / statistics.mean(v) * 1e3}
+                      for k, v in ms.items()}}
+    print("  bench frame by bake and walk, in turns, "
+          f"{REPS} frames a turn: " + "; ".join(
+              f"{k} {[round(m, 3) for m in v]} ms" for k, v in ms.items()))
+    calls = {}
+    for c in SUB_FRAME_SIZES:
+        calls[f"{c}"] = sub[c]["rows"]
+        for label, _ in SUB_FRAME_WALKS:
+            calls[f"{c} {label}"] = sub[c]["variants"][label]
+    calls[f"128 cull_chunk={CHUNK_CLASSIC}"] = sub["classic_chunk"]["rows"]
+    for label, rows in calls.items():
+        for row in rows:
+            row["kernel_ms"] = _kernel_ms(row, REPS * 4)
+            out_ = row["out"]
+            print(f"  {label} {'any_hit' if row['kw']['any_hit'] else 'nearest'}"
+                  f" call: kernel {row['kernel_ms']:.3f} ms, plain walk "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                  f"({row['ops']:.4g} ops; overhead {row['overhead_ops']:.4g}"
+                  f"), trips mean {float(out_.iters.float().mean()):.2f} max "
+                  f"{int(out_.iters.max())}, blocks tested "
+                  f"{float(out_.tests.float().mean()):.2f}, ray tests "
+                  f"{float(out_.ray_tests.float().mean()):.1f}")
+    out["calls"] = {label: [_call_summary(r) for r in rows]
+                    for label, rows in calls.items()}
+    record.append({"what": "subcluster times", "card": card, **out})
+    return out
+
+
 def _merged_span(intervals):
     """Total length covered by (start, end) intervals."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -980,11 +1204,19 @@ def _merged_span(intervals):
 
 
 _VARIANT = re.compile(r"walk_kernel<(\w+), (\d), (\w+)>")
+_SUB_VARIANT = re.compile(r"subwalk_kernel<(\w+), (\d), (\d), (\w+)>")
 
 
 def _variant(name):
+    """The walk kernel variant of a device kernel's name ("other" for the
+    rest): ``kernel_name`` for walk_kernel, ``subwalk<kind> SUBK=n`` for
+    the group kernel."""
     from raytpu_torch.kernels.fused import kernel_name
 
+    m = _SUB_VARIANT.search(name)
+    if m:
+        kind = "any_hit" if m.group(1) == "true" else "nearest"
+        return f"subwalk<{kind}> SUBK={m.group(3)}"
     m = _VARIANT.search(name)
     if not m:
         return "other"
@@ -1007,10 +1239,13 @@ def _profile(frame, frames):
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
     syncs = [e for e in events if e.device_type == DeviceType.CPU
              and e.name == "aten::_local_scalar_dense"]
-    groups = {}
+    groups, others = {}, {}
     for e in dev_events:
         g = _variant(e.name)
-        groups[g] = groups.get(g, 0.0) + e.time_range.end - e.time_range.start
+        span = e.time_range.end - e.time_range.start
+        groups[g] = groups.get(g, 0.0) + span
+        if g == "other":
+            others[e.name] = others.get(e.name, 0.0) + span
     total = sum(groups.values())
     out = {"device_events": len(dev_events),
            "host_syncs_per_frame": len(syncs) / frames,
@@ -1025,6 +1260,9 @@ def _profile(frame, frames):
         out["idle_ms_per_frame"] = (window - busy) / frames / 1e3
         out["per_frame_ms"] = {k: v / frames / 1e3 for k, v in groups.items()}
         out["shares"] = {k: v / total for k, v in groups.items()}
+        out["top_other_ms"] = [
+            (k[:60], v / frames / 1e3)
+            for k, v in sorted(others.items(), key=lambda kv: -kv[1])[:4]]
     return out
 
 
@@ -1039,12 +1277,14 @@ def _print_profile(p, frames):
           + f"; device busy {p['busy_share']:.1%} of the window, idle "
           f"{p['idle_ms_per_frame']:.3f} ms per frame; host syncs "
           f"{p['host_syncs_per_frame']:.0f} per frame, "
-          f"{p['host_sync_ms_per_frame']:.3f} ms blocked in them")
+          f"{p['host_sync_ms_per_frame']:.3f} ms blocked in them; other's "
+          "largest kernels: " + "; ".join(
+              f"{k} {v:.3f} ms" for k, v in p["top_other_ms"]))
 
 
-def phase_profile(card, flat, cfg, rays, inst, record):
+def phase_profile(card, flat, cfg, rays, inst, flagship, record):
     from raytpu_torch.render.instanced import render_image_instanced
-    from raytpu_torch.render.wavefront import render_rays
+    from raytpu_torch.render.wavefront import render_image, render_rays
 
     o, d = rays
 
@@ -1071,9 +1311,13 @@ def phase_profile(card, flat, cfg, rays, inst, record):
     instanced = _profile(
         lambda: render_image_instanced(iscene, icfg, camera), 3)
     _print_profile(instanced, 3)
+    print("  flagship frame (the 32 bake):")
+    fscene, fcfg, fcamera = flagship
+    flag = _profile(lambda: render_image(fscene, fcfg, fcamera), 2)
+    _print_profile(flag, 2)
     record.append({"what": "profile", "card": card, "frames": ms,
                    "median_ms": med, "host_median_ms": statistics.median(host),
-                   "bench": bench, "instanced": instanced})
+                   "bench": bench, "instanced": instanced, "flagship": flag})
 
 
 def _each_ms(fn, n):
@@ -1243,7 +1487,7 @@ def phase_fit(dev, card, flat, record):
               f"{out[label]['backward_rays_per_s']:.4g} backward rays/s "
               f"(2 x {FIT_RES}^2 per step); loss {float(loss):.3g}, "
               f"{nonzero} nonzero gradient entries, all finite; launches "
-              f"{launches}")
+              f"{_ran(launches)}")
         if label == "geometry":
             with recording_walks() as calls:
                 step(params, o, d, target)
@@ -1351,7 +1595,7 @@ def phase_overflow(flat, cfg, rays, img_default, record):
         first = ("nearest_prepick", "any_hit_prepick") if picked else (
             "nearest_budget", "any_hit_budget")
         finish = launches["nearest"] + launches["any_hit"]
-        print(f"  {label}: launches {launches}")
+        print(f"  {label}: launches {_ran(launches)}")
         if not all(launches[k] > 0 for k in first) or (
                 label in MUST_FINISH and finish == 0):
             raise AssertionError(f"{label}: a walk did not run: {launches}")
@@ -1379,14 +1623,431 @@ def phase_overflow(flat, cfg, rays, img_default, record):
     return out
 
 
-def _kernel_entry(name, replaces, launches, err, rows):
+@contextlib.contextmanager
+def walk_defaults(**kw):
+    """Inside, every query of the renderers gets ``kw`` (``nearest_hit``
+    walk settings): the baked renderer's ``nearest_hit`` and the instanced
+    renderer's ``nearest_hit_instanced``."""
+    from raytpu_torch.render import instanced, wavefront
+
+    saved = (wavefront.nearest_hit, instanced.nearest_hit_instanced)
+    wavefront.nearest_hit = functools.partial(saved[0], **kw)
+    instanced.nearest_hit_instanced = functools.partial(saved[1], **kw)
+    try:
+        yield
+    finally:
+        wavefront.nearest_hit, instanced.nearest_hit_instanced = saved
+
+
+def _require(launches, *names, absent=()):
+    ran = _ran(launches)
+    print(f"  launches {ran}")
+    if not all(launches[n] > 0 for n in names) or any(
+            a in k for k in ran for a in absent):
+        raise AssertionError(f"expected launches of {names} and none of "
+                             f"{absent}: {ran}")
+
+
+def _against_base(img, img_base, base, got, r, what):
+    """A frame against the base frame: the primary query's hits at the
+    same t bit for bit, and the pixels that differ only those whose primary
+    ray ties exactly (same t, another triangle).  Returns (ties, pixels
+    that differ)."""
+    hit = base.code[:r] >= 0
+    same = (torch.equal(hit, got.code[:r] >= 0)
+            and _bits_equal(base.t[:r][hit], got.t[:r][hit]))
+    ties = hit & (base.tri[:r] != got.tri[:r])
+    differ = (img != img_base).any(-1)
+    print(f"  {what}: primary hits and t bit for bit the base frame's: "
+          f"{same}; exact-t ties won by another triangle: "
+          f"{int(ties.sum())}; pixels that differ: {int(differ.sum())}")
+    if not same or bool((differ & ~ties).any()):
+        raise AssertionError(f"{what} differs from the base frame beyond "
+                             "exact-t ties")
+    return int(ties.sum()), int(differ.sum())
+
+
+def _variant_rows(rows, change, what, record):
+    """The subcluster walk with ``change`` on the recorded calls' queries,
+    each held against its plain version and against the recorded output:
+    the gate gives every output bit for bit, more picks a trip the same
+    hits at the same t."""
+    from raytpu_torch.kernels.fused import subwalk_cuda
+
+    out = []
+    for row in rows:
+        kw = {**row["kw"], **change}
+        got = subwalk_cuda(row["clusters"], row["tri_shade"], row["q"], **kw)
+        err, plain_ms = compare_walks(row["clusters"], row["tri_shade"],
+                                      row["q"], what, record, got=got, **kw)
+        base = row["out"]
+        hit = base.code >= 0
+        fields = GATE_KEEPS if "chunk_k" not in change else ()
+        same = (torch.equal(hit, got.code >= 0)
+                and _bits_equal(base.t[hit], got.t[hit])
+                and all(getattr(base, f) is None
+                        or _bits_equal(getattr(base, f), getattr(got, f))
+                        for f in fields))
+        if not same:
+            raise AssertionError(f"{what}: {change} changed a result")
+        out.append({"kw": kw, "err": err, "plain_ms": plain_ms,
+                    "iters": got.iters, "out": got, "q": row["q"],
+                    "clusters": row["clusters"],
+                    "tri_shade": row["tri_shade"],
+                    **walk_bound(row["q"], got, row["clusters"], kw)})
+    return out
+
+
+def phase_subcluster_frames(dev, flat128, cfg, rays, img128, frame_rows,
+                            record):
+    """bench.py's frame at BENCH_CSIZE 64 and 32: the renderer's defaults
+    take the subcluster walk; every walk call against the plain walk; the
+    image against the 128 frame's up to exact-t ties; the gate and 2 and 4
+    picks a trip on the frame's queries; the gated render (its sibling
+    gate turned on in every query) and the chunked renders (cull_chunk 4
+    at 32, and 2 at 128 through the classic walk) with their launch
+    counters, each image the same as its base frame."""
+    import dataclasses
+
+    from raytpu_torch.render.wavefront import render_rays
+
+    o, d = rays
+    r = o.shape[0]
+    base = [row["out"] for row in frame_rows if not row["kw"]["any_hit"]][0]
+    out = {}
+    for csize in SUB_FRAME_SIZES:
+        t0 = time.perf_counter()
+        flat = bench_scene(TRIS).flatten(cluster_size=csize, device=dev)
+        torch.cuda.synchronize()
+        ncg = flat.clusters["block"].shape[0]
+        print(f"[subcluster frame] the bench frame at cluster size {csize}: "
+              f"{ncg} blocks of {128 // csize} leaves, baked in "
+              f"{time.perf_counter() - t0:.1f} s")
+        reset_launches()
+        img = render_rays(flat, cfg, o, d)
+        launches = read_launches()
+        _require(launches, "nearest_sub", "any_hit_sub", absent=("pretest",))
+        _check_image(img, f"csize {csize} frame")
+        with recording_walks() as calls:
+            render_rays(flat, cfg, o, d)
+        rows = check_recorded(calls, f"csize {csize} frame", record)
+        got = [row["out"] for row in rows if not row["kw"]["any_hit"]][0]
+        ties, differ = _against_base(img, img128, base, got, r,
+                                     f"csize {csize} frame against 128")
+        variants = {label: _variant_rows(
+            rows, change, f"csize {csize} frame {label}", record)
+            for label, change in SUB_FRAME_WALKS}
+        entry = {"flat": flat, "img": img, "rows": rows,
+                 "variants": variants, "launches": launches, "ties": ties,
+                 "pixels_differ": differ}
+        if csize == SUB_FRAME_SIZES[-1]:
+            # The gated render and the chunked render: their own paths.
+            with walk_defaults(gate=True):
+                reset_launches()
+                gated = render_rays(flat, cfg, o, d)
+                entry["gate_launches"] = read_launches()
+            _require(entry["gate_launches"], "nearest_sub_gate",
+                     "any_hit_sub_gate")
+            ccfg = dataclasses.replace(cfg, cull_chunk=CHUNK_SUB)
+            reset_launches()
+            chunked = render_rays(flat, ccfg, o, d)
+            entry["chunk_launches"] = read_launches()
+            _require(entry["chunk_launches"], "nearest_sub_chunk",
+                     "any_hit_sub_chunk")
+            if not (torch.equal(gated, img) and torch.equal(chunked, img)):
+                raise AssertionError("the gated or chunked frame differs")
+            print(f"  gated and cull_chunk={CHUNK_SUB} frames: the same "
+                  "image bit for bit")
+        record.append({"what": f"subcluster frame {csize}", "blocks": ncg,
+                       "launches": launches, "ties": ties,
+                       "pixels_differ": differ})
+        out[csize] = entry
+    # The classic walk with two picks a trip, at 128.
+    ccfg = dataclasses.replace(cfg, cull_chunk=CHUNK_CLASSIC)
+    reset_launches()
+    chunked = render_rays(flat128, ccfg, o, d)
+    launches = read_launches()
+    print(f"[subcluster frame] the 128 frame with cull_chunk={CHUNK_CLASSIC}")
+    _require(launches, "nearest_chunk", "any_hit_chunk")
+    if not torch.equal(chunked, img128):
+        raise AssertionError("the chunked 128 frame differs")
+    with recording_walks() as calls:
+        render_rays(flat128, ccfg, o, d)
+    out["classic_chunk"] = {"launches": launches, "rows": check_recorded(
+        calls, f"128 frame cull_chunk={CHUNK_CLASSIC}", record)}
+    return out
+
+
+def flagship_scene():
+    """__graft_entry__.py::_flagship_scene with the port's types: a glass
+    sphere (reflective and transparent), a textured crate and a reflective
+    ground under a spot and a directional light."""
+    from raytpu_torch.scene.lights import DirectionalLight, SpotLight
+    from raytpu_torch.scene.procedural import box, plane, uv_sphere
+    from raytpu_torch.scene.types import Material, Scene, SceneObject
+
+    yy, xx = np.mgrid[0:32, 0:32]
+    checker = np.where((((yy // 4) + (xx // 4)) % 2 == 0)[..., None], 255, 40)
+    checker = np.broadcast_to(checker, (32, 32, 3)).astype(np.uint8)
+    glass = Material(reflectiveness=0.7, transparent=True,
+                     refraction_index=1.32,
+                     diffuse_color=(0.9, 0.9, 1.0, 0.55))
+    crate = Material(reflectiveness=0.2, use_texture=True, texture=checker)
+    ground = Material(reflectiveness=0.1, diffuse_color=(0.4, 0.45, 0.5, 1.0))
+    return Scene(
+        objects=[
+            SceneObject(meshes=[uv_sphere(radius=4.0, stacks=10, slices=16,
+                                          material=glass, convex=True)],
+                        position=(-5.0, 4.0, 0.0)),
+            SceneObject(meshes=[box(size=(6.0, 6.0, 6.0), material=crate)],
+                        position=(5.0, 3.0, 0.0), rotation=(0.0, 0.6, 0.0)),
+            SceneObject(meshes=[plane(size=(60.0, 60.0), material=ground)]),
+        ],
+        lights=[SpotLight(position=(0, 5, 20),
+                          direction=(0.0, -0.2425356, -0.9701425)),
+                DirectionalLight(direction=(0.3, -0.9, 0.1))])
+
+
+def _flagship_grads(dev, record):
+    """render_loss gradients of the dryrun's fields on the flagship's 32
+    bake, on the card and on the CPU, at 32x32."""
+    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.diff.fit import render_loss
+    from raytpu_torch.diff.params import extract_params
+
+    res = FLAGSHIP_GRAD_RES
+    cfg = RenderConfig(width=res, height=res, max_reflections=1,
+                       quantize=Quantize.NONE, tile_pixels=res * res,
+                       cull_tile=64, soft_tau=0.01)
+    cam = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
+    target = torch.full((res * res, 3), 0.5)
+    grads, losses = {}, {}
+    for where in ("cpu", dev):
+        scene = flagship_scene().flatten(cluster_size=32, device=where)
+        o, d = camera_rays(cam, res, res, device=where)
+        params = extract_params(scene, FLAGSHIP_FIELDS)
+        loss = render_loss(scene, cfg, params, o, d, target.to(where))
+        loss.backward()
+        grads[str(where)] = {k: v.grad for k, v in params.items()}
+        losses[str(where)] = float(loss.detach())
+    gc, gg = grads["cpu"], grads[str(dev)]
+    excess = max(_grads_close(gg[k], gc[k]) for k in gc)
+    diff = max(float((gg[k].cpu() - gc[k]).abs().max()) for k in gc)
+    finite = all(bool(torch.isfinite(g).all()) for g in gg.values())
+    print(f"  flagship gradients {FLAGSHIP_FIELDS} soft_tau=0.01 at "
+          f"{res}x{res}, card vs CPU: loss {losses[str(dev)]:.7g} / "
+          f"{losses['cpu']:.7g}, max abs diff {diff:.3g}, finite {finite}, "
+          f"within rtol {FIT_RTOL} + atol {FIT_ATOL} x max|g|: {excess <= 0}")
+    if not finite or excess > 0:
+        raise AssertionError("card and CPU gradients differ")
+    record.append({"what": "flagship grads card vs cpu",
+                   "max_abs_diff": diff})
+    return diff
+
+
+def phase_flagship(dev, card, record):
+    """The flagship scene at full size: entry()'s three bounces at
+    1024x1024, baked at 32 and at 128; every query of the 32 render also
+    through the 128 bake (the same hits at the same t, exact-t ties
+    counted); every walk call of both bakes against the plain walk; frame
+    ms and live rays/s with the ray slots and live rays per level; one step
+    of the dryrun's fit on the 32 bake; card against CPU gradients."""
+    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.diff.fit import make_fit_step
+    from raytpu_torch.diff.params import extract_params
+    from raytpu_torch.kernels.fused import nearest_hit_fused
+    from raytpu_torch.render.wavefront import (_default_query,
+                                               block_order_perm,
+                                               render_image, trace_colors)
+
+    cfg = RenderConfig(width=FLAGSHIP_RES, height=FLAGSHIP_RES,
+                       max_reflections=FLAGSHIP_REFLECTIONS,
+                       tile_pixels=FLAGSHIP_RES ** 2)
+    camera = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
+    bakes = {c: flagship_scene().flatten(cluster_size=c, device=dev)
+             for c in FLAGSHIP_SIZES}
+    flat = bakes[32]
+    print(f"[flagship] {flat.num_tris} triangles, dual-branch "
+          f"{flat.has_dual_branch}; {FLAGSHIP_RES}x{FLAGSHIP_RES}, "
+          f"max_reflections={FLAGSHIP_REFLECTIONS}; blocks: "
+          + ", ".join(f"{c}: {b.clusters['block'].shape[0]}"
+                      for c, b in bakes.items()))
+    imgs, launches = {}, {}
+    for c, b in bakes.items():
+        reset_launches()
+        imgs[c] = render_image(b, cfg, camera)
+        launches[c] = read_launches()
+        _require(launches[c], "nearest_sub" if c == 32 else "nearest",
+                 absent=("any_hit",) + (("_sub",) if c == 128 else ()))
+        nonblack = float((imgs[c].reshape(-1, 3).max(-1).values > 0)
+                         .float().mean())
+        if torch.isnan(imgs[c]).any() or nonblack < 0.3:
+            raise AssertionError(f"flagship at {c}: NaN or mostly black")
+        print(f"  bake {c}: nonblack {nonblack:.4f}, mean "
+              f"{float(imgs[c].mean()):.5f}")
+    # Every query of the 32 render, also through the 128 bake.
+    o, d = camera_rays(camera, FLAGSHIP_RES, FLAGSHIP_RES, device=dev)
+    perm = block_order_perm(FLAGSHIP_RES, FLAGSHIP_RES,
+                            max(1, int(cfg.cull_tile ** 0.5)), dev)
+    query32 = _default_query(cfg)
+    levels, ties = [], []
+
+    def both(scene, origin, direction, **kw):
+        res = query32(scene, origin, direction, **kw)
+        hit = res[0] if kw.get("with_rows") else res
+        other = nearest_hit_fused(
+            bakes[128], origin, direction, ignore_tri=kw.get("ignore_tri"),
+            ignore_mesh=kw.get("ignore_mesh"), cull=kw.get("cull", True),
+            t_max=kw.get("t_max"), any_hit=kw.get("any_hit", False),
+            tile_size=cfg.cull_tile)
+        if not (torch.equal(hit.hit, other.hit)
+                and _bits_equal(hit.t[hit.hit], other.t[hit.hit])):
+            raise AssertionError("the 32 and 128 bakes find other hits")
+        ties.append(int((hit.hit & (hit.tri != other.tri)).sum()))
+        levels.append({"primary": kw.get("ignore_mesh") is not None,
+                       "slots": int(origin.shape[0]),
+                       "live": int(torch.isfinite(direction).all(-1).sum())})
+        return res
+
+    with recording_walks() as calls:
+        colors = trace_colors(flat, cfg, o[perm], d[perm], query=both)
+    again = torch.empty_like(colors)
+    again[perm] = colors
+    if not torch.equal(again.reshape(imgs[32].shape), imgs[32]):
+        raise AssertionError("the flagship render is not repeatable")
+    differ = int((imgs[32] != imgs[128]).any(-1).sum())
+    print(f"  {len(levels)} queries, every one the same hits at the same t "
+          f"through both bakes; exact-t ties won by another triangle: "
+          f"{sum(ties)}; pixels that differ between the 32 and 128 images: "
+          f"{differ}")
+    per_level = [q for q in levels if q["primary"]]
+    print("  ray slots / live rays per level: " + "; ".join(
+        f"{q['slots']} / {q['live']}" for q in per_level))
+    rows = check_recorded(calls, "flagship", record)
+    # Frame times in turns (32, 128, 128, 32).
+    ms = {c: [] for c in FLAGSHIP_SIZES}
+    for c in FLAGSHIP_SIZES + FLAGSHIP_SIZES[::-1]:
+        ms[c].append(_cuda_ms(lambda: render_image(bakes[c], cfg, camera), 2))
+    live = sum(q["live"] for q in levels)
+    frame = {c: {"turns_ms": v, "ms": statistics.mean(v),
+                 "live_rays_per_s": live / statistics.mean(v) * 1e3}
+             for c, v in ms.items()}
+    print(f"  frame ms in turns: " + "; ".join(
+        f"bake {c} {[round(m, 3) for m in v['turns_ms']]} "
+        f"({v['live_rays_per_s']:.4g} live rays/s)"
+        for c, v in frame.items()) + f"; {live} live rays in all queries")
+    # One step of the dryrun's fit on the 32 bake, without the mesh.
+    fcfg = RenderConfig(width=FLAGSHIP_FIT_RES, height=FLAGSHIP_FIT_RES,
+                        max_reflections=1, quantize=Quantize.NONE,
+                        tile_pixels=FLAGSHIP_FIT_RES ** 2,
+                        differentiable=True, soft_tau=0.01)
+    fo, fd = camera_rays(camera, FLAGSHIP_FIT_RES, FLAGSHIP_FIT_RES,
+                         device=dev)
+    target = torch.full_like(fo, 0.5)
+    params = extract_params(flat, FLAGSHIP_FIELDS)
+    opt = torch.optim.Adam([params[k] for k in sorted(params)], lr=1e-2)
+    step = make_fit_step(flat, fcfg, opt, fields=FLAGSHIP_FIELDS)
+    reset_launches()
+    loss = step(params, fo, fd, target)
+    fit_launches = read_launches()
+    _require(fit_launches, "nearest_sub")
+    grads = [p.grad for p in params.values()]
+    finite = (bool(torch.isfinite(loss))
+              and all(bool(torch.isfinite(g).all()) for g in grads)
+              and all(bool(torch.isfinite(p).all())
+                      for p in params.values()))
+    step_ms = _each_ms(lambda: step(params, fo, fd, target), 2)
+    print(f"  dryrun fit step (Adam 1e-2, {FLAGSHIP_FIELDS}, soft_tau 0.01, "
+          f"{FLAGSHIP_FIT_RES}x{FLAGSHIP_FIT_RES}, one reflection): loss "
+          f"{float(loss):.6g}, gradients and params finite {finite}, step "
+          f"{[round(t, 3) for t in step_ms]} ms")
+    if not finite:
+        raise AssertionError("the flagship fit step is not finite")
+    grad_diff = _flagship_grads(dev, record)
+    out = {"launches": launches, "ties": sum(ties), "pixels_differ": differ,
+           "levels": per_level, "queries": levels, "frame": frame,
+           "live_rays": live, "fit_step_ms": step_ms,
+           "fit_loss": float(loss), "fit_launches": fit_launches,
+           "grad_max_abs_diff": grad_diff}
+    record.append({"what": "flagship", **out})
+    return {**out, "rows": rows, "render": (flat, cfg, camera)}
+
+
+def phase_instanced32(dev, inst, record):
+    """The instanced frame from a cluster_size=32 bake: with the defaults
+    (the block walk, pretest and re-cull) and with the pretest and re-cull
+    off (the subcluster walk), its gate off and on; their calls held against
+    the plain walk on a fixed subset of whole tiles; frame ms in turns
+    against the 128 bake."""
+    from raytpu_torch.render import instanced as prender
+
+    iscene128, icfg, camera, img128 = inst
+    t0 = time.perf_counter()
+    iscene = prender.flatten_instanced(instanced_frame_scene(TRIS),
+                                       cluster_size=32, device=dev)
+    torch.cuda.synchronize()
+    print(f"[instanced 32] the instanced frame from a cluster_size=32 bake "
+          f"({iscene.bakes[0].clusters['block'].shape[0]} blocks), baked in "
+          f"{time.perf_counter() - t0:.1f} s; calls held against the plain "
+          f"walk on every {INSTANCED_TILE_STRIDE}th tile")
+    settings = (("defaults", {}, "nearest_pretest"),
+                ("subcluster walk", NO_OPT_INS, "nearest_sub"),
+                ("subcluster walk, gate", {**NO_OPT_INS, "gate": True},
+                 "nearest_sub_gate"))
+    out = {}
+    for label, kw, want in settings:
+        with walk_defaults(**kw):
+            reset_launches()
+            img = prender.render_image_instanced(iscene, icfg, camera)
+            launches = read_launches()
+            print(f"  {label}:")
+            _require(launches, want, absent=("_sub",) if not kw else ())
+            with recording_walks() as calls:
+                again = prender.render_image_instanced(iscene, icfg, camera)
+        if not torch.equal(again, img):
+            raise AssertionError(f"instanced 32 {label}: not repeatable")
+        _check_image(img, f"instanced 32 {label}")
+        rows = check_recorded(calls, f"instanced 32 {label}", record,
+                              INSTANCED_TILE_STRIDE)
+        differ = int((img != img128).any(-1).sum())
+        print(f"  {label}: {len(calls)} walk calls; pixels that differ from "
+              f"the 128 bake's frame: {differ}")
+        out[label] = {"launches": launches, "rows": rows, "img": img,
+                      "pixels_differ_128": differ}
+    if not torch.equal(out["subcluster walk, gate"]["img"],
+                       out["subcluster walk"]["img"]):
+        raise AssertionError("the gate changed the instanced frame")
+    # Frame ms in turns against the 128 bake, and both bakes' block walks
+    # with the re-cull off.
+    frames = [("128 defaults", iscene128, {})] + [
+        (f"32 {label}", iscene, kw) for label, kw, _ in settings] + [
+        ("128 cull_recull=0", iscene128, {"cull_recull": 0}),
+        ("32 cull_recull=0", iscene, {"cull_recull": 0})]
+    ms = {name: [] for name, _, _ in frames}
+    for name, sc, kw in frames + frames[::-1]:
+        with walk_defaults(**kw):
+            ms[name].append(_cuda_ms(
+                lambda: prender.render_image_instanced(sc, icfg, camera), 1))
+    print("  instanced frame ms in turns: " + "; ".join(
+        f"{k} {[round(m, 3) for m in v]}" for k, v in ms.items()))
+    record.append({"what": "instanced 32", "turns_ms": ms, **{
+        label: {"launches": v["launches"],
+                "pixels_differ_128": v["pixels_differ_128"]}
+        for label, v in out.items()}})
+    out["turns_ms"] = ms
+    return out
+
+
+def _kernel_entry(name, replaces, launches, err, rows,
+                  source="raytpu_torch/kernels/csrc/walk.cu"):
     """One kernel's line: times, bound and trips summed or averaged over
     the walk calls ``rows`` it was measured on."""
     iters = torch.cat([r["iters"].float() for r in rows])
     n = len(rows)
     bound_by = {r["bound_by"] for r in rows}
-    return {"name": name, "route": "cuda",
-            "source": "raytpu_torch/kernels/csrc/walk.cu",
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in rows) / n,
             "plain_ms": sum(r["plain_ms"] for r in rows) / n,
@@ -1413,8 +2074,15 @@ def main():
     small_err = phase_small(dev, record)
     print(f"[clock] {time.perf_counter() - started:.0f} s")
     flat, cfg, rays, img, frame_rows, launches = phase_frame(dev, record)
-    iscene, icfg, camera, inst_rows, inst_launches, live_rays = \
+    iscene, icfg, camera, inst_rows, inst_launches, live_rays, inst_img = \
         phase_instanced(dev, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    sub = phase_subcluster_frames(dev, flat, cfg, rays, img, frame_rows,
+                                  record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    flagship = phase_flagship(dev, card, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    inst32 = phase_instanced32(dev, (iscene, icfg, camera, inst_img), record)
     print(f"[clock] {time.perf_counter() - started:.0f} s")
     pcfg, pre_rows, pre_launches = phase_pretest_frame(
         flat, cfg, rays, img, frame_rows, record)
@@ -1426,7 +2094,10 @@ def main():
                 (iscene, icfg, camera, inst_rows, live_rays), overflow,
                 record)
     print(f"[clock] {time.perf_counter() - started:.0f} s")
-    phase_profile(card, flat, cfg, rays, (iscene, icfg, camera), record)
+    phase_sub_times(card, flat, cfg, rays, sub, record)
+    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    phase_profile(card, flat, cfg, rays, (iscene, icfg, camera),
+                  flagship["render"], record)
 
     def rows_of(rows, any_hit, pretest):
         return [r for r in rows if r["kw"]["any_hit"] == any_hit
@@ -1461,7 +2132,7 @@ def main():
                       variant, inst_launches["nearest_pretest"],
                       err_of("nearest_pretest", inst_rows,
                              rows_of(pre_rows, False, True)),
-                      inst_rows),
+                      rows_of(pre_rows, False, True)),
         _kernel_entry(f"walk_kernel<any_hit, pretest> recull_every={RECULL}",
                       variant, pre_launches["any_hit_pretest"],
                       err_of("any_hit_pretest", rows_of(pre_rows, True, True)),
@@ -1485,12 +2156,51 @@ def main():
             "raytpu/kernels/fused.py:690 (max_trips; phase-1 compaction :1823)",
             overflow[budget]["launches"][f"{kind}_budget"],
             bounded_err(any_hit, budget), bounded_rows(budget, any_hit)))
+    # This slice's walks: the subcluster walk (SUBK 4 and 2) from the 32 and
+    # 64 bench frames, its gate from the gated 32 frame, and more than one
+    # pick a trip from the chunked frames (cull_chunk 4 at 32 through the
+    # subcluster walk, 2 at 128 through the classic walk's group kernel).
+    tlane = "raytpu/kernels/fused.py:1026-1229 (_tlane_kernel, subk > 1)"
+    group = "raytpu_torch/kernels/csrc/subwalk.cu"
+    for any_hit in (False, True):
+        kind = "any_hit" if any_hit else "nearest"
+        pick = lambda rows: [r for r in rows  # noqa: E731
+                             if r["kw"]["any_hit"] == any_hit]
+        for c in SUB_FRAME_SIZES:
+            rows = pick(sub[c]["rows"])
+            kernels.append(_kernel_entry(
+                f"subwalk_kernel<{kind}> SUBK={128 // c}", tlane,
+                sub[c]["launches"][f"{kind}_sub"],
+                err_of(f"{kind}_sub", rows), rows, group))
+        s32 = sub[SUB_FRAME_SIZES[-1]]
+        rows = pick(s32["variants"]["gate"])
+        kernels.append(_kernel_entry(
+            f"subwalk_kernel<{kind}> SUBK=4 gate",
+            "raytpu/kernels/fused.py:1140-1152, :1211-1219 (_tlane_kernel "
+            "gate)", s32["gate_launches"][f"{kind}_sub_gate"],
+            err_of(f"{kind}_sub_gate", rows), rows, group))
+        rows = pick(s32["variants"][f"chunk_k={CHUNK_SUB}"])
+        kernels.append(_kernel_entry(
+            f"subwalk_kernel<{kind}> SUBK=4 chunk_k={CHUNK_SUB}",
+            "raytpu/kernels/fused.py:1083-1115, :1154 (_tlane_kernel kc)",
+            s32["chunk_launches"][f"{kind}_sub_chunk"],
+            err_of(f"{kind}_sub_chunk", rows), rows, group))
+        rows = pick(sub["classic_chunk"]["rows"])
+        kernels.append(_kernel_entry(
+            f"subwalk_kernel<{kind}> SUBK=1 chunk_k={CHUNK_CLASSIC} "
+            "(classic walk)",
+            "raytpu/kernels/fused.py:407-422 (_fused_kernel k_chunk)",
+            sub["classic_chunk"]["launches"][f"{kind}_chunk"],
+            err_of(f"{kind}_chunk", rows), rows, group))
     for k in kernels:
         if not (math.isfinite(k["ms"]) and k["launches"] > 0):
             raise AssertionError(f"{k['name']}: no time or no launch")
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": kernels,
-         "records": record}, indent=1, default=str))
+         "flagship": {k: v for k, v in flagship.items()
+                      if k not in ("rows", "render")},
+         "instanced_32": inst32["turns_ms"], "records": record},
+        indent=1, default=str))
     print(f"[done] {time.perf_counter() - started:.0f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

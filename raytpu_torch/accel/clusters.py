@@ -4,7 +4,9 @@ Triangles are grouped into fixed-size clusters of ``cluster_size``
 (spatial-median BVH leaves by default, ordered by the Morton code of their
 centroids).  A walk culls whole clusters against a ray tile's beam, visits
 the survivors front to back by a conservative entry bound and tests every
-triangle of a visited cluster (kernels/fused.py).  The build is host-side
+triangle of a visited cluster (kernels/fused.py).  At cluster sizes 64 and
+32 several leaves share one 128-lane block (subclusters), culled and tested
+leaf by leaf.  The build is host-side
 NumPy; ``as_device_arrays`` emits the tables the walk reads.
 """
 
@@ -16,6 +18,8 @@ from typing import Optional
 import numpy as np
 
 BIG = np.float32(3.4028235e38)
+# Leaves per 128-lane block of a subcluster bake, by cluster size.
+SUBK = {64: 2, 32: 4}
 
 
 def morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -51,7 +55,7 @@ class ClusterTable:
     def as_device_arrays(self, tri_v1, tri_e1, tri_e2, tri_mesh):
         """The walk's tables, as NumPy arrays:
 
-        - ``block`` (NC, 24, C) f32: per cluster, the triangles in the
+        - ``block`` (NCG, 24, L) f32: per block, the triangles in the
           *triple-product* form of Möller–Trumbore.  With per-ray w = d x o,
           ``det = d·N`` (rows 0-2, N = cross(e2, e1)), ``u*det = w·E2n +
           d·M1n`` (M1n = cross(v1, e2) rows 3-5, E2n = -e2 rows 6-8),
@@ -59,24 +63,46 @@ class ClusterTable:
           rows 12-14), ``t*det = c0 - o·N`` (c0 = v1·N, row 15).  Row 16 is
           the original triangle id and row 17 the mesh id, both as int32
           bits; padding slots are all-zero geometry (det == 0, never
-          accepted) with ids -1.  Rows 18-23 hold the cluster AABB (min
+          accepted) with ids -1.  Rows 18-23 hold the block's AABB (min
           xyz, max xyz) across lanes, as in the reference bake.
-        - ``aabb`` (6, NC): cluster AABB planes (min xyz, max xyz).
-        - ``plane`` (5, NC): fitted-plane rows (normal xyz, offset d0,
-          half-thickness eps).  Every member vertex p satisfies
-          |p·n - d0| <= eps, so a beam's interval of t inside the thickened
-          plane bounds every hit in the cluster.
+        - ``aabb`` (6, NCG): block AABB planes (min xyz, max xyz).
         - ``root`` (8,): scene box min xyz, max xyz, a margin, 0.
 
-        Cluster sizes 64 and 32 pack several leaves per 128-lane block in
-        the reference bake (subclusters), which the walk does not read yet.
+        Fitted-plane rows (normal xyz, offset d0, half-thickness eps) are
+        baked per leaf: every member vertex p of a leaf satisfies
+        |p·n - d0| <= eps, so a beam's interval of t inside the thickened
+        plane bounds every hit in the leaf.
+
+        ``cluster_size`` 128 (or any size other than 64 and 32): one leaf
+        per block (NCG = NC, L = cluster_size), and ``plane`` (5, NCG).
+
+        ``cluster_size`` 64 or 32 (subclusters): ``subk = 128 //
+        cluster_size`` consecutive leaves pack into one 128-lane block,
+        leaf h of block g in lanes ``h*cluster_size`` to
+        ``(h+1)*cluster_size - 1``; the leaves are padded to a whole block
+        with empty, never-feasible ones.  ``block`` and ``aabb`` stay at
+        block granularity (the block box is the min/max over its leaves),
+        and the per-leaf tables are block-indexed: ``sub_aabb`` (subk, 6,
+        NCG) and ``sub_plane`` (subk, 5, NCG), sibling h of block g in
+        column g.  Such a bake has no block-level ``plane``: leaf planes
+        cannot be combined (raytpu/accel/clusters.py:139-301).
         """
         c = self.cluster_size
-        if c in (64, 32):
-            raise NotImplementedError(
-                "subcluster bakes (cluster_size 64/32) are not ported yet: "
-                "ROADMAP.md, queue 2 item 3 (subcluster walk)")
+        subk = SUBK.get(c, 1)
         order = self.order
+        cmin = self.cluster_min.astype(np.float32)
+        cmax = self.cluster_max.astype(np.float32)
+        nc = self.num_clusters
+        if nc % subk:
+            padl = subk - nc % subk
+            order = np.concatenate([order, np.full(padl * c, -1,
+                                                   order.dtype)])
+            cmin = np.concatenate([cmin, np.full((padl, 3), BIG, np.float32)])
+            cmax = np.concatenate([cmax, np.full((padl, 3), -BIG,
+                                                 np.float32)])
+            nc += padl
+        ncg = nc // subk   # blocks
+        lanes = c * subk   # block lane width
         safe = np.maximum(order, 0)
         pad = order < 0
         tri_id = np.where(pad, -1, safe).astype(np.int32)
@@ -87,9 +113,6 @@ class ClusterTable:
             out[pad] = fill
             return out
 
-        nc = self.num_clusters
-        cmin = self.cluster_min.astype(np.float32)
-        cmax = self.cluster_max.astype(np.float32)
         v1h = permh(tri_v1)
         e1h = permh(tri_e1)
         e2h = permh(tri_e2)
@@ -97,7 +120,7 @@ class ClusterTable:
         m1n = np.cross(v1h, e2h)
         m2 = np.cross(e1h, v1h)
         c0 = np.sum(v1h * nrm, axis=-1)
-        block = np.zeros((24, nc, c), np.float32)
+        block = np.zeros((24, ncg, lanes), np.float32)
         rows = (
             [nrm[:, k] for k in range(3)]
             + [m1n[:, k] for k in range(3)]
@@ -107,15 +130,17 @@ class ClusterTable:
             + [c0]
         )
         for i, r in enumerate(rows):
-            block[i] = r.reshape(nc, c)
-        block[16] = tri_id.reshape(nc, c).view(np.float32)
-        block[17] = mesh.reshape(nc, c).view(np.float32)
+            block[i] = r.reshape(ncg, lanes)
+        block[16] = tri_id.reshape(ncg, lanes).view(np.float32)
+        block[17] = mesh.reshape(ncg, lanes).view(np.float32)
+        mn_g = cmin.reshape(ncg, subk, 3).min(axis=1)
+        mx_g = cmax.reshape(ncg, subk, 3).max(axis=1)
         for k3 in range(3):
-            block[18 + k3] = cmin[:, k3:k3 + 1]
-            block[21 + k3] = cmax[:, k3:k3 + 1]
+            block[18 + k3] = mn_g[:, k3:k3 + 1]
+            block[21 + k3] = mx_g[:, k3:k3 + 1]
         block = np.ascontiguousarray(block.transpose(1, 0, 2))
 
-        aabb = np.concatenate([cmin.T, cmax.T]).astype(np.float32)
+        aabb = np.concatenate([mn_g.T, mx_g.T]).astype(np.float32)
         root_min = cmin.min(axis=0)
         root_max = cmax.max(axis=0)
         diag = np.float32(np.max(root_max - root_min))
@@ -125,9 +150,9 @@ class ClusterTable:
         root[3:6] = root_max
         root[6] = margin
 
-        # Fitted plane per cluster: the smallest-covariance-eigenvector
-        # plane of its member vertices; eps covers every vertex (f64, padded
-        # by a diag-relative slack that swallows the walk's f32 interval
+        # Fitted plane per leaf: the smallest-covariance-eigenvector plane
+        # of its member vertices; eps covers every vertex (f64, padded by a
+        # diag-relative slack that swallows the walk's f32 interval
         # rounding).
         p3 = np.stack([v1h, v1h + e1h, v1h + e2h], axis=1)
         p3 = p3.astype(np.float64).reshape(nc, c * 3, 3)
@@ -148,7 +173,7 @@ class ClusterTable:
         d0 = (pmin + pmax) * 0.5
         half = (pmax - pmin) * 0.5
         eps = half * (1.0 + 1e-4) + 1e-5 * float(diag) + 1e-30
-        # Empty clusters: a never-constraining plane (their AABB is already
+        # Empty leaves: a never-constraining plane (their AABB is already
         # infeasible).
         nrm_pl = np.where(empty[:, None], [0.0, 0.0, 1.0], nrm_pl)
         d0 = np.where(empty, 0.0, d0)
@@ -156,9 +181,16 @@ class ClusterTable:
         plane = np.concatenate(
             [nrm_pl.T, d0[None, :], eps[None, :]]).astype(np.float32)
 
-        return {k: np.ascontiguousarray(a) for k, a in (
-            ("block", block), ("aabb", aabb), ("plane", plane),
-            ("root", root))}
+        tables = {"block": block, "aabb": aabb, "root": root}
+        if subk == 1:
+            tables["plane"] = plane
+        else:
+            tables["sub_aabb"] = np.stack([
+                np.concatenate([cmin[h::subk].T, cmax[h::subk].T])
+                for h in range(subk)])
+            tables["sub_plane"] = np.stack([plane[:, h::subk]
+                                            for h in range(subk)])
+        return {k: np.ascontiguousarray(a) for k, a in tables.items()}
 
 
 def _median_split_leaves(centroids: np.ndarray, idx: np.ndarray,
@@ -266,3 +298,15 @@ def build_clusters(tri_verts: np.ndarray, cluster_size: int = 128,
         cluster_max=cluster_max.astype(np.float32),
         cluster_size=cluster_size,
     )
+
+
+def leaves_per_block(clusters) -> int:
+    """Leaves per block of a bake's tables (``as_device_arrays``): 1, or
+    the sibling count of a subcluster bake."""
+    return clusters["sub_aabb"].shape[0] if "sub_aabb" in clusters else 1
+
+
+def leaf_size(clusters) -> int:
+    """Triangles per leaf of a bake's tables: the block's lane width over
+    its leaves."""
+    return clusters["block"].shape[2] // leaves_per_block(clusters)

@@ -43,7 +43,8 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
                 cull_chunk: int = 1, t_max=None, any_hit: bool = False,
                 cull_pretest: bool = True, cull_recull: int = 6,
                 cull_phase1: int = 0, cull_prepick: int = 0,
-                cull_nbuf: int = 4, with_rows: bool = False):
+                cull_nbuf: int = 4, with_rows: bool = False,
+                gate: bool = False):
     """Dispatch by configured intersector (config.Intersector).
 
     ``AUTO`` and ``PALLAS`` run the cluster walk (kernels/fused.py) at every
@@ -59,9 +60,12 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
     ``cull_prepick``: the prepick walk with that many picks per tile and its
     rescue pass (it refuses the pretest and the re-cull with ``ValueError``,
     as the JAX package does); ``cull_nbuf``: the reference's DMA ring
-    depth, any int >= 1, which sets nothing on the card
-    (``kernels/fused.py::nearest_hit_fused``).  ``cull_chunk`` other than 1
-    raises ``NotImplementedError`` naming its ROADMAP.md item.
+    depth, any int >= 1, which sets nothing on the card; ``cull_chunk``:
+    clusters per walk trip (``kernels/fused.py::nearest_hit_fused``).
+    On a subcluster bake (cluster size 64 or 32) a query without the
+    pretest, the re-cull and the prepick walk takes the subcluster walk;
+    ``gate`` turns on its sibling gate (exact either way; the JAX
+    package's ``nearest_hit`` leaves it off).
     ``any_hit``: occlusion-query mode — the hit/no-hit boolean (against
     ``t_max``) is exact but the reported hit is not the nearest
     (IsLightPathObstructed's early-out, RayTracer.cs:465-502).
@@ -74,13 +78,12 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
     _refuse("block", block, 2048, "queue 1 item 5 (the other query backends)")
     _refuse("brute_force_max_tris", brute_force_max_tris, 4096,
             "queue 1 item 5 (the other query backends)")
-    _refuse("cull_chunk", cull_chunk, 1, "queue 2 item 2 (walk opt-ins)")
     from raytpu_torch.kernels.fused import nearest_hit_fused
 
     return nearest_hit_fused(
         scene, origin, direction, ignore_tri, ignore_mesh, cull,
-        tile_size=cull_tile, t_max=t_max, any_hit=any_hit,
-        pretest=cull_pretest, recull_every=cull_recull,
+        tile_size=cull_tile, chunk_k=cull_chunk, t_max=t_max,
+        any_hit=any_hit, pretest=cull_pretest, recull_every=cull_recull,
         phase1_trips=cull_phase1, prepick=cull_prepick, nbuf=cull_nbuf,
-        return_rows=with_rows,
+        gate=gate, return_rows=with_rows,
     )

@@ -26,31 +26,44 @@ def _tensor(a):
     return torch.from_numpy(np.array(a))  # a contiguous, writable copy
 
 
+def _cut(grid, ncg):
+    """A reference cull grid (..., 8, NC8) as (..., NCG): block g sits at
+    flat position g of the (8, NC8) grid."""
+    a = np.asarray(grid, np.float32)
+    return a.reshape(a.shape[:-2] + (-1,))[..., :ncg]
+
+
 def flat_scene_from_numpy(arrays: dict, meta: dict,
                           device="cuda") -> FlatScene:
     """Build the port's FlatScene from the reference bake's arrays, on
     ``device`` (the card unless the caller names another).
 
     ``arrays``: the tables named in ``TABLES``, ``lights`` (dict) and
-    ``clusters`` (dict with ``block`` (NCG, 24, C), ``aabb`` (6, 8, NC8),
-    ``sub_plane`` (1, 5, 8, NC8) and ``root`` (1, 8)).  ``meta``: the
-    static fields named in ``META``.  The cull tables are cut from the
-    reference's padded (8, NC8) grids to (6, NCG) and (5, NCG)."""
+    ``clusters`` (dict with ``block`` (NCG, 24, L), ``aabb`` (6, 8, NC8),
+    ``sub_plane`` (subk, 5, 8, NC8), ``root`` (1, 8) and, for a subcluster
+    bake (cluster size 64 or 32, subk > 1), ``sub_aabb`` (subk, 6, 8,
+    NC8)).  ``meta``: the static fields named in ``META``.  The cull tables
+    are cut from the reference's padded (8, NC8) grids to (6, NCG) and
+    (5, NCG) (a 128-style bake's ``sub_plane`` becomes ``plane``), or to
+    (subk, 6, NCG) and (subk, 5, NCG)."""
     dev = resolve(device)
     cl = arrays["clusters"]
     block = np.asarray(cl["block"], np.float32)
     ncg = block.shape[0]
-    if "sub_aabb" in cl or "sub_plane" not in cl:
-        raise NotImplementedError(
-            "only cluster_size-128-style bakes with fitted planes are "
-            "ported: ROADMAP.md, queue 2 item 3 (subcluster walk)")
-    aabb = np.asarray(cl["aabb"], np.float32).reshape(6, -1)[:, :ncg]
-    plane = np.asarray(cl["sub_plane"], np.float32).reshape(5, -1)[:, :ncg]
-    root = np.asarray(cl["root"], np.float32).reshape(8)
+    if "sub_plane" not in cl:
+        raise ValueError("the bake has no fitted-plane rows (sub_plane); "
+                         "bake it with build_plane=True")
+    clusters = {"block": block, "aabb": _cut(cl["aabb"], ncg),
+                "root": np.asarray(cl["root"], np.float32).reshape(8)}
+    sub_plane = _cut(cl["sub_plane"], ncg)
+    if "sub_aabb" in cl:
+        clusters["sub_aabb"] = _cut(cl["sub_aabb"], ncg)
+        clusters["sub_plane"] = sub_plane
+    else:
+        clusters["plane"] = sub_plane[0]
+    clusters = {k: _tensor(a) for k, a in clusters.items()}
 
     tables = {k: _tensor(arrays[k]) for k in TABLES}
-    clusters = {"block": _tensor(block), "aabb": _tensor(aabb),
-                "plane": _tensor(plane), "root": _tensor(root)}
     # Triangle and mesh ids ride as int32 bits in block rows 16/17 and in
     # tri_shade channel 31; the walk indexes tri_shade with the former.
     n_tris = tables["tri_shade"].shape[0]

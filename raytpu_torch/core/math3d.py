@@ -44,11 +44,17 @@ def refract_xna(direction, normal, n1, n2):
     Returns the *unnormalized* refraction direction; the caller normalizes
     (RayTracer.cs:694).  Total internal reflection produces NaN (the C# code
     takes sqrt of a negative), which downstream intersection tests treat as
-    a miss — replicated deliberately.  ``n1``/``n2``: (R,) tensors."""
+    a miss — replicated deliberately.  The NaN is a constant selected in
+    after the square root of a sanitized radicand, so no gradient flows
+    through it: a zero cotangent times a NaN would be NaN.  ``n1``/``n2``:
+    (R,) tensors."""
     ratio = n1 / n2
     cos1 = dot(normal, -direction)
-    cos2 = torch.sqrt(1.0 - ratio * ratio * (1.0 - cos1 * cos1))
+    k = 1.0 - ratio * ratio * (1.0 - cos1 * cos1)
+    tir = ~(k >= 0.0)  # NaN included
+    cos2 = torch.sqrt(torch.where(tir, 1.0, k))
     term = (ratio * cos1 - cos2)[..., None]
     base = ratio[..., None] * direction
-    return torch.where((cos1 >= 0.0)[..., None], base + term * normal,
-                       base - term * normal)
+    out = torch.where((cos1 >= 0.0)[..., None], base + term * normal,
+                      base - term * normal)
+    return torch.where(tir[..., None], float("nan"), out)

@@ -114,11 +114,14 @@ def rebuild_accel(scene: FlatScene, params: Dict[str, torch.Tensor],
                   pad_clusters_to: Optional[int] = None) -> FlatScene:
     """Re-bake the cluster tables from the current fitted geometry.
 
-    Host-side (accel/clusters.py); ``pad_clusters_to`` keeps every table's
-    shape across re-bakes.  Rows whose mesh id is -1 (padding rows of a
-    bridged bake) are left out, as the reference leaves out its invalid
+    Host-side (accel/clusters.py), at the bake's leaf size: a subcluster
+    bake (cluster size 64 or 32) packs several leaves per 128-lane block,
+    and its re-bake does again (raytpu/diff/fit.py:180-188).
+    ``pad_clusters_to``, a count of leaves, keeps every table's shape
+    across re-bakes.  Rows whose mesh id is -1 (padding rows of a bridged
+    bake) are left out, as the reference leaves out its invalid
     triangles."""
-    from raytpu_torch.accel.clusters import build_clusters
+    from raytpu_torch.accel.clusters import build_clusters, leaf_size
 
     with torch.no_grad():
         shade = apply_params(scene, params).tri_shade.cpu().numpy()
@@ -126,7 +129,7 @@ def rebuild_accel(scene: FlatScene, params: Dict[str, torch.Tensor],
     v1, e1, e2 = col("tri_v1"), col("tri_e1"), col("tri_e2")
     mesh = shade[:, 31].view(np.int32)
     verts = np.stack([v1, v1 + e1, v1 + e2], axis=1)
-    ct = build_clusters(verts, cluster_size=scene.clusters["block"].shape[2],
+    ct = build_clusters(verts, cluster_size=leaf_size(scene.clusters),
                         valid=mesh >= 0, pad_clusters_to=pad_clusters_to)
     tables = ct.as_device_arrays(v1, e1, e2, mesh)
     return dataclasses.replace(scene, clusters={
@@ -188,8 +191,11 @@ def fit(scene: FlatScene, cfg: RenderConfig, camera: Camera, target_image,
     pad_to = None
     if rebuild_every:
         # After the restore: a resumed fit re-bakes from the restored
-        # geometry.  Slack for the cluster count's drift across re-bakes.
-        nc0 = scene.clusters["block"].shape[0]
+        # geometry.  Slack for the leaf count's drift across re-bakes.
+        from raytpu_torch.accel.clusters import leaves_per_block
+
+        nc0 = scene.clusters["block"].shape[0] * leaves_per_block(
+            scene.clusters)
         pad_to = nc0 + max(8, nc0 // 8)
         scene = rebuild_accel(scene, params, pad_to)
 

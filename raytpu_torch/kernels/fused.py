@@ -51,18 +51,35 @@ earlier winner (the single-walk semantics):
   than picks may leave rays unresolved; the rescue pass finishes them, and
   runs only when some ray is unresolved (a host read).
 
-Every walk counts per tile the trips (clusters picked and walked, the
-counterpart of the reference kernel's ``iters``), the clusters whose
-triangles were tested (trips less pretest skips) and the ray tests the
-function needs (each tested cluster's unresolved rays, summed), and returns
-the per-ray resolved flag.
+Two more shapes of the walk (the counterparts of ``_tlane_kernel`` with
+``subk`` > 1 and of both reference kernels' ``chunk_k``):
 
-``walk_cuda`` and ``prepick_cuda`` launch the kernels of ``csrc/walk.cu``;
-``walk_plain`` and ``prepick_plain`` are the same walks in PyTorch, with the
-same arithmetic in the same order, and each kernel agrees with its plain
-version bit for bit on the card.  ``nearest_hit_fused`` takes the plain
-walks for tensors on the CPU and the kernels for CUDA tensors; there is no
-fallback from one to the other.
+- The subcluster walk, on a bake of cluster size 64 or 32, whose 128-lane
+  blocks pack 2 or 4 leaves (accel/clusters.py): every leaf gets its own
+  entry (its box, intersected with its fitted plane), a block's key is the
+  least of its leaves' entries, the walk picks blocks by key and tests a
+  picked block's leaves in order as separate passes.  With ``gate`` a pass
+  is skipped when its leaf's entry is not below the largest min(best, t
+  bound) of the tile's unresolved rays, taken once at the trip's start.
+  A ray settles against the next block's key.  Equal-t ties between leaves
+  of one block go to the lower leaf.
+- ``chunk_k`` picks per trip: a trip takes the next K picks and tests them
+  in pick order, and the rays settle against the next group's first pick.
+
+Every walk counts per tile the trips (picks or groups of picks walked, the
+counterpart of the reference kernel's ``iters``), the clusters whose
+triangles were tested (picks less pretest or gate skips) and the ray tests
+the function needs (each tested cluster's, or each leaf pass's, unresolved
+rays, summed), and returns the per-ray resolved flag.
+
+``walk_cuda`` and ``prepick_cuda`` launch the kernels of ``csrc/walk.cu``,
+``subwalk_cuda`` (and ``walk_cuda`` with more than one pick a trip) the
+group kernel of ``csrc/subwalk.cu``; ``walk_plain``, ``subwalk_plain`` and
+``prepick_plain`` are the same walks in PyTorch, with the same arithmetic
+in the same order, and each kernel agrees with its plain version bit for
+bit on the card.  ``nearest_hit_fused`` takes the plain walks for tensors
+on the CPU and the kernels for CUDA tensors; there is no fallback from one
+to the other.
 
 Triangle ids ride as int32 end to end, so a scene may hold up to 2^31 - 1
 triangle slots (the reference kernel carried ids as f32 values and stopped
@@ -96,21 +113,29 @@ CONSUMED = float("inf")
 
 
 def kernel_name(any_hit: bool, pretest: bool = False, budget: bool = False,
-                prepick: bool = False) -> str:
+                prepick: bool = False, sub: bool = False, gate: bool = False,
+                chunk: bool = False) -> str:
     """The ``LAUNCHES`` key of a walk kernel launch: the query kind, then
-    ``_prepick`` for the prepick walk, or ``_pretest`` for the pretest
-    instantiation and ``_budget`` for a launch with a trip budget."""
+    ``_prepick`` for the prepick walk, or ``_sub`` for the subcluster walk
+    (``_gate`` with its gate on), ``_pretest`` for the pretest
+    instantiation, ``_chunk`` for more than one pick per trip and
+    ``_budget`` for a launch with a trip budget."""
     name = "any_hit" if any_hit else "nearest"
     if prepick:
         return name + "_prepick"
-    return name + ("_pretest" if pretest else "") + ("_budget" if budget
-                                                     else "")
+    return (name + ("_sub" if sub else "") + ("_gate" if gate else "")
+            + ("_pretest" if pretest else "") + ("_chunk" if chunk else "")
+            + ("_budget" if budget else ""))
 
 
-# Launches of each CUDA kernel variant (``kernel_name``); ``walk_cuda`` and
-# ``prepick_cuda`` add one per launch.
-LAUNCHES = {kernel_name(a, p, b): 0 for a in (False, True)
-            for p in (False, True) for b in (False, True)}
+# Launches of each CUDA kernel variant (``kernel_name``); ``walk_cuda``,
+# ``subwalk_cuda`` and ``prepick_cuda`` add one per launch.
+LAUNCHES = {kernel_name(a, p, b, chunk=c): 0 for a in (False, True)
+            for p in (False, True) for b in (False, True)
+            for c in (False, True)}
+LAUNCHES.update({kernel_name(a, budget=b, sub=True, gate=g, chunk=c): 0
+                 for a in (False, True) for b in (False, True)
+                 for g in (False, True) for c in (False, True)})
 LAUNCHES.update({kernel_name(a, prepick=True): 0 for a in (False, True)})
 
 
@@ -242,15 +267,16 @@ def _merge(first: WalkOut, second: WalkOut, unresolved) -> WalkOut:
     return WalkOut(rows=None, resolved=second.resolved, **fields)
 
 
-def _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf):
+def _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf,
+                    chunk_k):
     for name, value, least in (("phase1_trips", phase1_trips, 0),
                                ("prepick", prepick, 0), ("nbuf", nbuf, 1)):
         if not isinstance(value, int) or value < least:
             raise ValueError(f"{name} must be an int >= {least}, got "
                              f"{value!r}")
-    if prepick and (pretest or recull_every):
-        raise ValueError("prepick is incompatible with pretest/recull_every "
-                         "(classic-walk-only settings)")
+    if prepick and (pretest or recull_every or chunk_k > 1):
+        raise ValueError("prepick is incompatible with pretest/recull_every/"
+                         "chunk_k>1 (classic-walk-only settings)")
     if prepick and phase1_trips:
         raise ValueError("prepick and phase1_trips are mutually exclusive "
                          "overflow strategies")
@@ -258,40 +284,88 @@ def _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf):
 
 def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
                       ignore_mesh=None, cull=True, tile_size: int = 256,
-                      t_max=None, any_hit: bool = False,
-                      recull_every: int = 0, pretest: bool = False,
+                      t_max=None, any_hit: bool = False, chunk_k: int = 1,
+                      mxu=None, recull_every: int = 0, pretest: bool = False,
                       phase1_trips: int = 0, prepick: int = 0, nbuf: int = 4,
+                      layout=None, plane=None, gate: bool = False,
                       return_iters: bool = False, return_rows: bool = False):
     """Exact nearest hit (or any-hit occlusion) by the cluster walk.
 
     CPU tensors go through the plain walks, CUDA tensors through the CUDA
     kernels.  ``pretest``/``recull_every``: the walk-shape opt-ins (module
     docstring); the hits are the same with and without them.
+    ``chunk_k``: picks per trip (at most the bake's block count); the hits
+    are the same, except that an exact-t tie between two blocks of one trip
+    goes to the earlier pick.
     ``phase1_trips`` > 0: the two-phase compaction, phase 1 on that
     trip budget.  ``prepick`` > 0: the prepick walk with at most that many
     picks per tile and the rescue pass; incompatible with ``pretest``,
-    ``recull_every`` and ``phase1_trips``.  ``nbuf``: the depth of the
-    reference kernel's DMA ring for the prepick walk (any int >= 1); the
-    CUDA walk stages one cluster at a time, so on the card it sets nothing,
-    and it never changes a result.
+    ``recull_every``, ``chunk_k`` > 1 and ``phase1_trips``.  ``nbuf``: the
+    depth of the reference kernel's DMA ring for the prepick walk (any int
+    >= 1); the CUDA walk stages one cluster at a time, so on the card it
+    sets nothing, and it never changes a result.
+
+    The reference's routing (raytpu/kernels/fused.py:1681-1714):
+    ``layout`` chooses between the two walks and nothing else, since the
+    card has no pair layouts: ``"t"`` the subcluster walk (the reference's
+    transposed-layout kernel), ``"row"`` the classic walk.  ``None``: the
+    subcluster walk on a subcluster bake (cluster size 64 or 32), any-hit
+    queries included, unless the query asks for ``pretest``,
+    ``recull_every`` or ``prepick``, which take the block-granularity
+    classic or prepick walk, without planes; the classic walk on every
+    other bake.  ``layout="t"`` with those raises ``ValueError``.
+    ``plane``: intersect the entries with the fitted planes (None: on
+    whenever the bake has the rows; a subcluster bake has leaf planes
+    only).  ``gate``: the subcluster walk skips a sibling pass whose entry
+    is not below the trip's largest unresolved cap (exact either way; the
+    classic walk has no gate).  ``mxu=True`` (the reference's matmul form
+    of the pair test) raises ``NotImplementedError``.
+
     ``return_rows``: return ``(Hit, rows)`` with the winners' (R, 32) shade
     rows; channel 31 carries the mesh id as a float value and misses get
     all-zero rows (None for any-hit queries; the overflow strategies gather
     them from ``tri_shade`` after the walks).  Otherwise ``return_iters``:
     return ``(Hit, iters)`` with the (NT,) int32 trips per tile, summed
     over the walks of a strategy."""
-    _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf)
+    if mxu:
+        raise NotImplementedError(
+            "mxu=True (the matmul pair test on the gblock bake) is not "
+            "ported yet: ROADMAP.md, queue 2 item 2 (walk opt-ins)")
+    if layout not in (None, "row", "t"):
+        raise ValueError(f"layout must be None, 'row' or 't', got {layout!r}")
+    classic_only = bool(pretest or recull_every or prepick)
+    if layout == "t" and classic_only:
+        raise ValueError("layout='t' is incompatible with mxu/pretest/"
+                         "recull_every/prepick")
+    from raytpu_torch.accel.clusters import leaves_per_block
+
+    if layout is None:
+        layout = ("t" if leaves_per_block(scene.clusters) > 1
+                  and not classic_only else "row")
+    plane = True if plane is None else bool(plane)
+    _check_walk_args(cull, recull_every, chunk_k=chunk_k)
+    chunk_k = min(chunk_k, scene.clusters["block"].shape[0])
+    _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf,
+                    chunk_k)
     if origin.device.type == "cuda":
         walk, pick_walk = walk_cuda, prepick_cuda
+        if layout == "t":
+            walk = subwalk_cuda
     elif origin.device.type == "cpu":
         walk, pick_walk = walk_plain, prepick_plain
+        if layout == "t":
+            walk = subwalk_plain
     else:
         raise ValueError(f"no walk for device {origin.device}")
     q = pack_query(origin, direction, ignore_tri, ignore_mesh, t_max,
                    tile_size)
     tables = (scene.clusters, scene.tri_shade)
     kind = dict(cull=cull, any_hit=any_hit)
-    shape = dict(pretest=pretest, recull_every=recull_every)
+    shape = dict(chunk_k=chunk_k, plane=plane)
+    if layout == "t":
+        shape["gate"] = gate
+    else:
+        shape.update(pretest=pretest, recull_every=recull_every)
     if prepick:
         out = pick_walk(*tables, q, picks=prepick, **kind)
         unresolved = out.resolved == 0
@@ -299,7 +373,7 @@ def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
         # (the reference decides it on the device, with lax.cond).
         if bool(unresolved.any()):
             out = _merge(out, walk(*tables, _finish_query(q, out, unresolved),
-                                   rows=False, **kind), unresolved)
+                                   rows=False, **kind, **shape), unresolved)
     elif phase1_trips:
         first = walk(*tables, q, max_trips=phase1_trips, rows=False, **kind,
                      **shape)
@@ -417,18 +491,17 @@ def _pick(ent, idx):
 class _Tiles(NamedTuple):
     """The prologue of a walk over n whole tiles (``o``/``d`` (n, ts, 3),
     the rest (n, ts)): each ray's finite flag, root-capped t bound and
-    resolved flag, and the tiles' entry table."""
+    resolved flag, and the largest bound of the unresolved rays."""
 
     o3: tuple
     d3: tuple
     finite: torch.Tensor
     tmax0: torch.Tensor
     resolved: torch.Tensor
-    ent: torch.Tensor
+    wcap: torch.Tensor
 
 
-def _prologue(cl, o, d, tmax_in, plane: bool) -> _Tiles:
-    root, aabb = cl["root"], cl["aabb"]
+def _prologue(root, o, d, tmax_in) -> _Tiles:
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     finite = (torch.isfinite(ox) & torch.isfinite(oy) & torch.isfinite(oz)
@@ -453,10 +526,25 @@ def _prologue(cl, o, d, tmax_in, plane: bool) -> _Tiles:
     # included) start resolved; the entries are pruned at the largest bound
     # of the others, so a dead ray's NaN bound cannot poison its tile.
     resolved = ~finite | ~(tmax0 > 0.0)
-    o3, d3 = (ox, oy, oz), (dx, dy, dz)
-    ent = _entry_bounds(aabb, cl["plane"] if plane else None, finite, o3, d3,
-                        torch.where(resolved, -INF, tmax0).amax(1))
-    return _Tiles(o3, d3, finite, tmax0, resolved, ent)
+    return _Tiles((ox, oy, oz), (dx, dy, dz), finite, tmax0, resolved,
+                  torch.where(resolved, -INF, tmax0).amax(1))
+
+
+class _Walk(NamedTuple):
+    """The shape of a walk (``walk_plain``, ``subwalk_plain``): per-sibling
+    cull tables ``aabb`` (subk, 6, NCG) and ``plane`` (subk, 5, NCG) or
+    None (the slab interval alone); subk 1 is the classic walk, whose
+    sibling is the block itself.  ``chunk_k``: picks per trip, already at
+    most NCG.  ``gate``: skip a sibling pass whose entry is not below the
+    trip's largest unresolved cap."""
+
+    aabb: torch.Tensor
+    plane: Optional[torch.Tensor]
+    chunk_k: int = 1
+    gate: bool = False
+    pretest: bool = False
+    recull_every: int = 0
+    max_trips: int = 0
 
 
 def _walk_state(tl: _Tiles, itri, any_hit):
@@ -484,70 +572,116 @@ def _walk_out(state, resolved, any_hit, trips, tests, ray_tests):
                    iters=trips, tests=tests, ray_tests=ray_tests)
 
 
+def _pick_group(ent, idx, k):
+    """The next ``k`` picks of tiles ``idx`` in pick order: (m, k) entries
+    (INF past the end) and cluster ids."""
+    picks = [_pick(ent, idx) for _ in range(k)]
+    return (torch.stack([v for v, _ in picks], 1),
+            torch.stack([c for _, c in picks], 1))
+
+
+def _slab_viable(aabb, margin, k, cap, o3, inv_d, idx):
+    """The pretest: can any unresolved ray of tiles ``idx`` reach cluster
+    ``k``'s box (widened by the root margin) before its cap?  Resolved rays
+    have cap -INF."""
+    t_en = torch.full_like(cap, -INF)
+    t_ex = torch.full_like(cap, INF)
+    for a, (ok_, ik) in enumerate(zip(o3, inv_d)):
+        mn = (aabb[a, k] - margin)[:, None]
+        mx = (aabb[3 + a, k] + margin)[:, None]
+        t1 = (mn - ok_[idx]) * ik[idx]
+        t2 = (mx - ok_[idx]) * ik[idx]
+        t_en = torch.maximum(t_en, torch.minimum(t1, t2))
+        t_ex = torch.minimum(t_ex, torch.maximum(t1, t2))
+    return ((t_en <= t_ex) & (t_ex >= 0.0) & (t_en < cap)).any(1)
+
+
 def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
-                pretest, recull_every, max_trips, rows):
-    """Walk n whole tiles: ``o``/``d`` (n, ts, 3), the rest (n, ts)."""
-    block, aabb = cl["block"], cl["aabb"]
+                walk: _Walk, rows):
+    """Walk n whole tiles: ``o``/``d`` (n, ts, 3), the rest (n, ts).
+
+    A trip takes the next ``chunk_k`` picks (a block's key is the least of
+    its siblings' entries) and tests them in pick order, each block's
+    siblings in order ``h = 0..subk-1``, each sibling behind the gate when
+    it is on; the rays then settle against the next group's first pick."""
+    block = cl["block"]
+    csize = block.shape[2]
+    subk = walk.aabb.shape[0]
+    csub = csize // subk
     margin = cl["root"][6]
-    tl = _prologue(cl, o, d, tmax_in, plane=True)
-    o3, d3, tmax0, resolved, ent = tl.o3, tl.d3, tl.tmax0, tl.resolved, tl.ent
+    tl = _prologue(cl["root"], o, d, tmax_in)
+    o3, d3, tmax0, resolved = tl.o3, tl.d3, tl.tmax0, tl.resolved
     state, w3 = _walk_state(tl, itri, any_hit)
     bt, bc = state["bt"], state["bc"]
 
+    def entries(h, finite, o3_, d3_, wcap):
+        return _entry_bounds(walk.aabb[h], None if walk.plane is None
+                             else walk.plane[h], finite, o3_, d3_, wcap)
+
+    esub = [entries(h, tl.finite, o3, d3, tl.wcap) for h in range(subk)]
+    ent = esub[0].clone()
+    for e in esub[1:]:
+        ent = torch.minimum(ent, e)
+
     n = tmax0.shape[0]
-    if pretest:
+    if walk.pretest:
         inv_d = [1.0 / torch.where(dk == 0.0, _TINY_DIR, dk) for dk in d3]
     trips = torch.zeros(n, dtype=torch.int32, device=o.device)
     tests = torch.zeros_like(trips)
     ray_tests = torch.zeros_like(trips)
 
     tiles = torch.arange(n, device=o.device)
-    first, cur_k = _pick(ent, tiles)
-    live = first < INF
+    cur_v, cur_k = _pick_group(ent, tiles, walk.chunk_k)
+    live = cur_v[:, 0] < INF
     # No feasible cluster: nothing to hit, every ray is proven.
     resolved |= ~live[:, None]
     while bool(live.any()):
         idx = tiles[live]
         trips[idx] += 1
-        if pretest:
-            # Can any unresolved ray reach the picked cluster's box before
-            # its cap?  Resolved rays have cap -INF.
-            cap = torch.where(resolved[idx], -INF,
-                              torch.minimum(bt[idx], tmax0[idx]))
-            t_en = torch.full_like(cap, -INF)
-            t_ex = torch.full_like(cap, INF)
-            for a, (ok_, ik) in enumerate(zip(o3, inv_d)):
-                mn = (aabb[a, cur_k[idx]] - margin)[:, None]
-                mx = (aabb[3 + a, cur_k[idx]] + margin)[:, None]
-                t1 = (mn - ok_[idx]) * ik[idx]
-                t2 = (mx - ok_[idx]) * ik[idx]
-                t_en = torch.maximum(t_en, torch.minimum(t1, t2))
-                t_ex = torch.minimum(t_ex, torch.maximum(t1, t2))
-            viable = ((t_en <= t_ex) & (t_ex >= 0.0) & (t_en < cap)).any(1)
-            tidx = idx[viable]
-        else:
-            tidx = idx
-        tests[tidx] += 1
-        ray_tests[tidx] += (~resolved[tidx]).sum(1, dtype=torch.int32)
-        if tidx.numel():
-            _test_cluster(block, tidx, cur_k[tidx], o3, d3, w3, itri, imesh,
-                          tmax0, cull, any_hit, state)
-        nv, nk = _pick(ent, idx)
+        # The trip's caps, taken once at its start: min(best, t bound) of
+        # each unresolved ray, -INF for resolved ones.
+        unres = ~resolved[idx]
+        n_unres = unres.sum(1, dtype=torch.int32)
+        cap = torch.where(unres, torch.minimum(bt[idx], tmax0[idx]), -INF)
+        capmax = cap.amax(1)
+        for j in range(walk.chunk_k):
+            v, k = cur_v[idx, j], cur_k[idx, j]
+            valid = v < INF
+            if walk.pretest:
+                valid &= _slab_viable(cl["aabb"], margin, k, cap, o3, inv_d,
+                                      idx)
+            ran = torch.zeros_like(valid)
+            for h in range(subk):
+                run = valid
+                if walk.gate:
+                    e = v if subk == 1 else esub[h][idx, k]
+                    run = run & (e < capmax)
+                if not bool(run.any()):
+                    continue
+                tidx = idx[run]
+                ray_tests[tidx] += n_unres[run]
+                _test_cluster(block, tidx, k[run], o3, d3, w3, itri, imesh,
+                              tmax0, cull, any_hit, state, h * csub,
+                              (h + 1) * csub)
+                ran |= run
+            tests[idx[ran]] += 1
+        nxt_v, nxt_k = _pick_group(ent, idx, walk.chunk_k)
+        nv = nxt_v[:, :1]
         if any_hit:
-            settle = (bc[idx] >= 0) | (tmax0[idx] <= nv[:, None])
+            settle = (bc[idx] >= 0) | (tmax0[idx] <= nv)
         else:
-            settle = bt[idx] <= nv[:, None]
+            settle = bt[idx] <= nv
         res = resolved[idx] | settle
         resolved[idx] = res
-        go = (nv < INF) & ~res.all(1)
-        if max_trips:
+        go = (nv[:, 0] < INF) & ~res.all(1)
+        if walk.max_trips:
             # The trip budget: the rays not yet resolved keep their best
             # as a candidate.
-            go &= trips[idx] < max_trips
+            go &= trips[idx] < walk.max_trips
         live[idx] = go
-        cur_k[idx] = nk
-        if recull_every:
-            due = go & (trips[idx] % recull_every == 0)
+        cur_v[idx], cur_k[idx] = nxt_v, nxt_k
+        if walk.recull_every:
+            due = go & (trips[idx] % walk.recull_every == 0)
             if bool(due.any()):
                 # Re-cull from the beam of the unresolved rays only, pruned
                 # at the largest of their caps; consumed clusters stay so.
@@ -555,10 +689,9 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
                 unres = ~resolved[r_]
                 wcap = torch.where(unres, torch.minimum(bt[r_], tmax0[r_]),
                                    -INF).amax(1)
-                fresh = _entry_bounds(aabb, cl["plane"],
-                                      tl.finite[r_] & unres,
-                                      tuple(a[r_] for a in o3),
-                                      tuple(a[r_] for a in d3), wcap)
+                fresh = entries(0, tl.finite[r_] & unres,
+                                tuple(a[r_] for a in o3),
+                                tuple(a[r_] for a in d3), wcap)
                 e = ent[r_]
                 ent[r_] = torch.where(e == CONSUMED, e, fresh)
 
@@ -572,16 +705,18 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
 def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
     """The prepick walk of n whole tiles: ``o``/``d`` (n, ts, 3), the rest
     (n, ts)."""
-    tl = _prologue(cl, o, d, tmax_in, plane=False)
+    tl = _prologue(cl["root"], o, d, tmax_in)
     tmax0, resolved = tl.tmax0, tl.resolved
     state, w3 = _walk_state(tl, itri, any_hit)
     bt, bc = state["bt"], state["bc"]
-    n, ncg = tl.ent.shape
+    # Slab-only entries of the blocks (no fitted planes).
+    ent = _entry_bounds(cl["aabb"], None, tl.finite, tl.o3, tl.d3, tl.wcap)
+    n, ncg = ent.shape
 
     # Pick phase: the first ``picks`` entries in (entry, cluster id) order,
     # and the tail bound, the least entry left (INF once drained).  A
     # stable sort orders equal entries by id, like repeated argmins.
-    vals, ks = torch.sort(tl.ent, dim=1, stable=True)
+    vals, ks = torch.sort(ent, dim=1, stable=True)
     f = min(picks, ncg)
     tail = (vals[:, picks] if picks < ncg
             else torch.full((n,), INF, dtype=vals.dtype, device=vals.device))
@@ -617,13 +752,14 @@ def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
 
 
 def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
-                  any_hit, state):
-    """Test the rays of tiles ``idx`` against clusters ``k`` (one per tile)
-    and update the per-ray best in ``state`` in place."""
+                  any_hit, state, lo=0, hi=None):
+    """Test the rays of tiles ``idx`` against lanes ``lo`` to ``hi - 1``
+    of blocks ``k`` (one per tile; default every lane) in lane order and
+    update the per-ray best in ``state`` in place."""
     ox, oy, oz = o3
     dx, dy, dz = d3
     wx, wy, wz = w3
-    g = block[k, :GEO_ROWS]  # (m, 18, C)
+    g = block[k, :GEO_ROWS, lo:hi]  # (m, 18, lanes)
     row = lambda i: g[:, i, None, :]  # noqa: E731  (m, 1, C)
     col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
     rdx, rdy, rdz = col(dx), col(dy), col(dz)
@@ -651,7 +787,7 @@ def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
     mint = take(dist)
     bt = state["bt"]
     upd = mint < bt[idx]
-    code = (k[:, None] * g.shape[2] + lane[..., 0]).to(bc.dtype)
+    code = (k[:, None] * block.shape[2] + lo + lane[..., 0]).to(bc.dtype)
     bt[idx] = torch.where(upd, mint, bt[idx])
     bc[idx] = torch.where(upd, code, bc[idx])
     for name, q in (("bu", udet), ("bv", vdet), ("bd", det), ("bi", tid)):
@@ -681,16 +817,53 @@ def _over_chunks(clusters, q: Query, walk_tiles):
         for name, xs in zip(WalkOut._fields, zip(*parts))))
 
 
+def _walk_spec(clusters, sub: bool, plane: bool, chunk_k: int,
+               gate=False, pretest=False, recull_every=0,
+               max_trips=0) -> _Walk:
+    """The ``_Walk`` of the classic walk (``sub`` False: the block is its
+    own sibling, with its fitted plane when the bake has block planes) or
+    the subcluster walk (the bake's sibling tables; a bake of one leaf per
+    block is its own sibling again).  ``plane`` False: slab intervals
+    alone."""
+    if sub and "sub_aabb" in clusters:
+        aabb, planes = clusters["sub_aabb"], clusters["sub_plane"]
+    else:
+        aabb, planes = clusters["aabb"][None], clusters.get("plane")
+        planes = None if planes is None else planes[None]
+    return _Walk(aabb, planes if plane else None,
+                 min(chunk_k, clusters["block"].shape[0]), gate, pretest,
+                 recull_every, max_trips)
+
+
 def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
                pretest: bool = False, recull_every: int = 0,
-               max_trips: int = 0, rows: bool = True):
+               max_trips: int = 0, rows: bool = True, chunk_k: int = 1,
+               plane: bool = True):
     """The classic walk in plain PyTorch, on any device.  ``max_trips`` > 0:
     stop each tile after that many trips.  ``rows``: a nearest query also
-    returns the winners' shade rows."""
-    _check_walk_args(cull, recull_every, max_trips)
+    returns the winners' shade rows.  ``chunk_k``: picks per trip.
+    ``plane``: intersect the entries with the block's fitted plane when the
+    bake has block planes (a subcluster bake has none)."""
+    _check_walk_args(cull, recull_every, max_trips, chunk_k=chunk_k)
+    spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
+                      recull_every=recull_every, max_trips=max_trips)
     return _over_chunks(clusters, q, lambda *ray: _walk_tiles(
-        clusters, tri_shade, *ray, cull, any_hit, pretest, recull_every,
-        max_trips, rows))
+        clusters, tri_shade, *ray, cull, any_hit, spec, rows))
+
+
+def subwalk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+                  gate: bool = False, chunk_k: int = 1, max_trips: int = 0,
+                  plane: bool = True, rows: bool = True):
+    """The subcluster walk in plain PyTorch, on any device: per-sibling
+    entries (with each leaf's fitted plane when ``plane``), ``chunk_k``
+    blocks per trip, each sibling pass behind the ``gate`` when it is on.
+    On a bake of one leaf per block it is the classic walk without the
+    pretest and re-cull, and the gate skips whole blocks."""
+    _check_walk_args(cull, 0, max_trips, chunk_k=chunk_k)
+    spec = _walk_spec(clusters, True, plane, chunk_k, gate=bool(gate),
+                      max_trips=max_trips)
+    return _over_chunks(clusters, q, lambda *ray: _walk_tiles(
+        clusters, tri_shade, *ray, cull, any_hit, spec, rows))
 
 
 def prepick_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
@@ -705,12 +878,25 @@ def prepick_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
 # ---- The CUDA kernels -------------------------------------------------------
 
 
-def _smem_bytes(ncg: int, csize: int, picks: int = 0) -> int:
-    """Dynamic shared memory of one walk block: the entry table, one staged
-    cluster block and, for the prepick walk, its picks (entry and id).  The
+# Picks per trip the group kernel takes at most (its pass bits fit one
+# 32-bit word), and the room of its beam in shared memory, in bytes.
+MAX_CHUNK = 8
+_BEAM_BYTES = 128
+
+
+def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
+                subk: int = 1) -> int:
+    """Dynamic shared memory of one walk block: the entry (key) table and
+    one staged cluster block and, for the prepick walk, its picks (entry
+    and id).  ``chunk_k`` > 0: the group kernel's, with ``chunk_k`` staged
+    blocks, the group's keys and ids and, ``subk`` > 1, their sibling
+    entries and the beam (csrc/subwalk.cu ``group_smem_bytes``).  The
     re-cull needs no table of its own: a consumed cluster's entry is marked
     +inf in place (``CONSUMED``)."""
-    return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
+    if not chunk_k:
+        return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
+    n = 4 * (ncg + chunk_k * GEO_ROWS * csize) + 8 * chunk_k
+    return n + (4 * chunk_k * subk + _BEAM_BYTES if subk > 1 else 0)
 
 
 def _check(name, x, dev, dtype, shape):
@@ -725,24 +911,29 @@ def _check(name, x, dev, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_walk_args(cull, recull_every, max_trips=0, picks=None):
+def _check_walk_args(cull, recull_every, max_trips=0, picks=None,
+                     chunk_k=1):
     if cull not in _CULL_CODE:
         raise ValueError(
             f"cull must be True, False or 'reverse', got {cull!r}")
     for name, value, least in (("recull_every", recull_every, 0),
                                ("max_trips", max_trips, 0),
-                               ("picks", 1 if picks is None else picks, 1)):
+                               ("picks", 1 if picks is None else picks, 1),
+                               ("chunk_k", chunk_k, 1)):
         if not isinstance(value, int) or value < least:
             raise ValueError(f"{name} must be an int >= {least}, got "
                              f"{value!r}")
 
 
 def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
-              max_trips=0, picks=None):
+              max_trips=0, picks=None, spec: Optional[_Walk] = None,
+              group=False):
     """The checks a kernel's wrapper makes before a launch: every tensor on
-    the rays' device, of the kernel's dtype and shape, contiguous, and the
-    block's shared memory within the card's limit.  ``picks``: the prepick
-    walk's (None for the classic walk)."""
+    the rays' device, of the kernel's dtype and shape, contiguous, at most
+    ``MAX_CHUNK`` picks per trip, and the block's shared memory within the
+    card's limit.  ``picks``: the prepick walk's (None for the others);
+    ``spec``: the classic or subcluster walk's tables and shape; ``group``:
+    the walk launches the group kernel."""
     _check_walk_args(cull, recull_every, max_trips, picks)
     block = clusters["block"]
     r, ts = q.origin.shape[0], q.tile
@@ -750,21 +941,33 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
     f32, i32 = torch.float32, torch.int32
     if not 1 <= ts <= 1024 or r % ts:
         raise ValueError(f"tile {ts} must be in [1, 1024] and divide {r} rays")
-    for name, x, dtype, shape in (
-            ("origin", q.origin, f32, (r, 3)),
-            ("direction", q.direction, f32, (r, 3)),
-            ("t_max", q.t_max, f32, (r,)),
-            ("ignore_tri", q.ignore_tri, i32, (r,)),
-            ("ignore_mesh", q.ignore_mesh, i32, (r,)),
-            ("block", block, f32, (ncg, 24, csize)),
-            ("aabb", clusters["aabb"], f32, (6, ncg)),
-            ("plane", clusters["plane"], f32, (5, ncg)),
-            ("root", clusters["root"], f32, (8,)),
-            ("tri_shade", tri_shade, f32, (tri_shade.shape[0], 32))):
+    tables = [("origin", q.origin, f32, (r, 3)),
+              ("direction", q.direction, f32, (r, 3)),
+              ("t_max", q.t_max, f32, (r,)),
+              ("ignore_tri", q.ignore_tri, i32, (r,)),
+              ("ignore_mesh", q.ignore_mesh, i32, (r,)),
+              ("block", block, f32, (ncg, 24, csize)),
+              ("aabb", clusters["aabb"], f32, (6, ncg)),
+              ("root", clusters["root"], f32, (8,)),
+              ("tri_shade", tri_shade, f32, (tri_shade.shape[0], 32))]
+    subk, chunk_k = 1, 0
+    if spec is not None:
+        subk = spec.aabb.shape[0]
+        chunk_k = spec.chunk_k if group else 0
+        tables.append(("sibling aabb", spec.aabb, f32, (subk, 6, ncg)))
+        if spec.plane is not None:
+            tables.append(("sibling plane", spec.plane, f32, (subk, 5, ncg)))
+        if csize % subk or subk not in (1, 2, 4):
+            raise ValueError(f"{subk} leaves per block of {csize} lanes")
+        if spec.chunk_k > MAX_CHUNK:
+            raise ValueError(f"chunk_k {spec.chunk_k} exceeds the kernel's "
+                             f"{MAX_CHUNK} picks per trip")
+    for name, x, dtype, shape in tables:
         _check(name, x, q.origin.device, dtype, shape)
-    need = _smem_bytes(ncg, csize, picks or 0)
+    need = _smem_bytes(ncg, csize, picks or 0, chunk_k, subk)
     if need > SMEM_LIMIT:
-        what = f" and {picks} picks" if picks else ""
+        what = (f" and {picks} picks" if picks else
+                f" and {chunk_k} picks per trip" if chunk_k else "")
         raise ValueError(
             f"{ncg} clusters of {csize}{what} need {need} bytes of shared "
             f"memory per block; the limit is {SMEM_LIMIT}")
@@ -797,40 +1000,83 @@ def _launch(name, fn, args, dev):
     LAUNCHES[name] += 1
 
 
-def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
-              pretest: bool = False, recull_every: int = 0,
-              max_trips: int = 0, rows: bool = True):
-    """Launch the classic walk kernel of ``csrc/walk.cu`` on the current
-    stream.
-
-    Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` (nearest) and
-    ``_fused_kernel`` (any-hit, and nearest with ``pretest``,
-    ``recull_every`` and ``max_trips``); see the source for what bounds it
-    on the card."""
+def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
+                 rows, sub: bool):
+    """Launch the classic walk (``sub`` False) or the subcluster walk:
+    ``walk_kernel`` for the classic walk with one pick per trip, the group
+    kernel ``subwalk_kernel`` for every other."""
     dev = q.origin.device
+    name = "subwalk_cuda" if sub else "walk_cuda"
     if dev.type != "cuda":
-        raise ValueError(f"walk_cuda needs CUDA tensors, got {dev}")
-    _validate(clusters, tri_shade, q, cull, recull_every, max_trips)
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    group = sub or spec.chunk_k > 1
+    _validate(clusters, tri_shade, q, cull, spec.recull_every,
+              spec.max_trips, spec=spec, group=group)
     block, r, ts = clusters["block"], q.origin.shape[0], q.tile
     ncg, _, csize = block.shape
     p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     out = _outputs(r, r // ts, dev, not any_hit)
     if rows and not any_hit:
         out["rows"] = torch.empty((r, 32), dtype=torch.float32, device=dev)
-    common = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
-              p(q.ignore_mesh), r, ts, p(clusters["root"]),
-              p(clusters["aabb"]), p(clusters["plane"]), p(block), ncg, csize)
-    walk = (_CULL_CODE[cull], int(pretest), recull_every, max_trips)
+    rays = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
+            p(q.ignore_mesh), r, ts, p(clusters["root"]), p(clusters["aabb"]))
+    plane = p(spec.plane)  # the block's own when the walk is classic
+    shape = (_CULL_CODE[cull], int(spec.pretest), spec.recull_every,
+             spec.max_trips)
     counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
-    if any_hit:
-        args = (*common, *walk, p(out["t"]), p(out["code"]), *counts)
-    else:
-        args = (*common, p(tri_shade), *walk, p(out["t"]), p(out["code"]),
-                p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows")),
+    winner = (() if any_hit else
+              (p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows"))))
+    shade = () if any_hit else (p(tri_shade),)
+    kind = "any_hit" if any_hit else "nearest"
+    if group:
+        args = (*rays, p(block), ncg, csize, p(spec.aabb), plane,
+                spec.aabb.shape[0], *shade, *shape, spec.chunk_k,
+                int(spec.gate), p(out["t"]), p(out["code"]), *winner,
                 *counts)
-    _launch(kernel_name(any_hit, pretest, max_trips > 0),
-            "rt_any_hit" if any_hit else "rt_nearest_hit", args, dev)
+        fn = "rt_subwalk_" + kind
+    else:
+        args = (*rays, plane, p(block), ncg, csize, *shade, *shape,
+                p(out["t"]), p(out["code"]), *winner, *counts)
+        fn = "rt_" + ("any_hit" if any_hit else "nearest_hit")
+    _launch(kernel_name(any_hit, spec.pretest, spec.max_trips > 0, sub=sub,
+                        gate=spec.gate, chunk=spec.chunk_k > 1), fn, args,
+            dev)
     return WalkOut(**out)
+
+
+def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+              pretest: bool = False, recull_every: int = 0,
+              max_trips: int = 0, rows: bool = True, chunk_k: int = 1,
+              plane: bool = True):
+    """Launch the classic walk of ``csrc/walk.cu`` on the current stream
+    (``walk_plain``'s arguments); more than one pick per trip launches the
+    group kernel of ``csrc/subwalk.cu``.
+
+    Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` (nearest) and
+    ``_fused_kernel`` (any-hit, and nearest with ``pretest``,
+    ``recull_every``, ``max_trips`` and ``chunk_k``); see the sources for
+    what bounds it on the card."""
+    _check_walk_args(cull, recull_every, max_trips, chunk_k=chunk_k)
+    spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
+                      recull_every=recull_every, max_trips=max_trips)
+    return _launch_walk(clusters, tri_shade, q, cull, any_hit, spec, rows,
+                        sub=False)
+
+
+def subwalk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
+                 gate: bool = False, chunk_k: int = 1, max_trips: int = 0,
+                 plane: bool = True, rows: bool = True):
+    """Launch the subcluster walk of ``csrc/subwalk.cu`` on the current
+    stream (``subwalk_plain``'s arguments).
+
+    Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` with subk > 1
+    (and at subk 1 on a bake of one leaf per block), its ``gate`` and its
+    ``chunk_k``; see the source for what bounds it on the card."""
+    _check_walk_args(cull, 0, max_trips, chunk_k=chunk_k)
+    spec = _walk_spec(clusters, True, plane, chunk_k, gate=bool(gate),
+                      max_trips=max_trips)
+    return _launch_walk(clusters, tri_shade, q, cull, any_hit, spec, rows,
+                        sub=True)
 
 
 def prepick_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,

@@ -11,9 +11,15 @@ two-pass wavefront over ray levels:
 1. **Forward expansion** — level ``l`` holds the rays at recursion depth
    ``l``.  Each level runs one nearest-hit query plus one shadow query per
    light and records per-node coefficients ``color(node) = a + b *
-   color(child)`` with ``a = (1-refl)*S*L`` and ``b = refl*L`` (at the
-   reflection limit the reference shades ``S*L`` with no child —
-   RayTracer.cs:708-727).
+   color(reflection) + c * color(refraction)`` with ``a = (1-refl)*S*L``
+   and ``b = refl*L``, both scaled by alpha on transparent hits, and ``c =
+   1 - alpha`` there (at the reflection limit the reference shades ``S*L``
+   with no child — RayTracer.cs:708-727).  In scenes with transparency a
+   level's children sit in one of two layouts: *merged* (no material both
+   reflects and refracts, so a parent has at most one live child, which
+   takes the parent's slot, ``b`` and ``c`` folded into ``b``) or
+   *dual-branch* (``[reflection | refraction]``, doubling per level, live
+   rays first when ``cfg.compact_wavefront``).
 2. **Backward combine** — colors propagate from the deepest level to the
    root.  XNA quantizes every ``CastRay`` return into a byte ``Color``;
    ``Quantize.BOUNCE`` replicates that, ``FINAL`` only rounds the
@@ -24,8 +30,8 @@ search, inputs and outputs alike, and recomputes (u, v, t) from the hit
 triangle's gathered row, so gradients reach the scene parameters through
 shading and the row gather, never through the walk (``_trace_level``).
 
-Transparency, supersampling and the debug channels are not ported yet;
-asking for them raises ``NotImplementedError``.
+Supersampling and the debug channels are not ported yet; asking for them
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from raytpu_torch.config import Quantize, RenderConfig, RenderMode
 from raytpu_torch.accel.traverse import nearest_hit
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.core.intersect import moller_trumbore_safe
-from raytpu_torch.core.math3d import normalize, reflect
+from raytpu_torch.core.math3d import normalize, reflect, refract_xna
 from raytpu_torch.core.xna import quantize_color
 from raytpu_torch.scene import lights as lights_mod
 from raytpu_torch.scene import texture as texture_mod
@@ -52,8 +58,7 @@ class LevelRecord(NamedTuple):
     mask: torch.Tensor  # (R,) valid-hit mask
     a: torch.Tensor  # (R, 3) local emission coefficient
     b: torch.Tensor  # (R, 3) reflection-child weight
-    # (R,) refraction-child weight; only render/instanced.py sets it.
-    c: Optional[torch.Tensor] = None
+    c: Optional[torch.Tensor] = None  # (R,) refraction-child weight
 
 
 class RaySet(NamedTuple):
@@ -61,6 +66,7 @@ class RaySet(NamedTuple):
     direction: torch.Tensor
     ignore_tri: torch.Tensor
     ignore_mesh: torch.Tensor
+    cur_ref: torch.Tensor  # (R,) refraction index of the medium
     alive: torch.Tensor
 
 
@@ -71,9 +77,6 @@ def _unported(what: str, item: str):
 def check_supported(scene: FlatScene, cfg: RenderConfig):
     """Raise ``NotImplementedError`` for what the port cannot render yet,
     naming the ROADMAP.md item that ports it."""
-    if scene.has_transparent:
-        raise _unported("transparent materials",
-                        "queue 1 item 1 (transparency and refraction)")
     if cfg.use_multisampling:
         raise _unported("use_multisampling", "queue 1 item 3 (supersampling)")
     if cfg.render_mode != RenderMode.SHADED:
@@ -82,8 +85,6 @@ def check_supported(scene: FlatScene, cfg: RenderConfig):
     if cfg.shadow_clearance:
         raise _unported("shadow_clearance",
                         "queue 1 item 5 (the other query backends)")
-    if cfg.cull_chunk > 1:
-        raise _unported("cull_chunk > 1", "queue 2 item 2 (walk opt-ins)")
 
 
 def shade_row_views(s, mesh_as_value: bool = False):
@@ -199,8 +200,12 @@ def _default_query(cfg: RenderConfig):
 
 def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
                   hit_tri, valid, query):
-    """Per-fragment light sum with shadow rays (RayTracer.cs:533-542); an
-    occluder blocks the light fully (opaque scenes).
+    """Per-fragment light sum with shadow rays (RayTracer.cs:533-542).  An
+    opaque occluder blocks the light fully; a transparent one lets ``1 -
+    alpha`` of it through (IsLightPathObstructed, RayTracer.cs:465-502), so
+    in scenes with transparency the shadow queries are nearest queries
+    bounded at the light, and the occluder's alpha stays differentiable
+    through the row gather.
 
     ``valid`` masks live fragments: dead lanes carry garbage ``frag_pos``,
     so their shadow rays get NaN directions — they never hit and stay out of
@@ -214,11 +219,13 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
         # Fragments the light cannot reach anyway (outside the spot cone,
         # facing away — SpotLight.cs:45-52) skip their shadow ray outright.
         lit = valid & (contrib != 0.0).any(-1)
-        # Positionable lights cast the segment test from the LIGHT toward
-        # the fragment: all rays of the query share one origin, so tile
-        # beams are thin cones and the cull prunes far more clusters.  Same
-        # segment and t bound with mirrored backface culling.
-        reverse = (cfg.shadow_from_light
+        # Positionable lights in opaque scenes cast the segment test from
+        # the LIGHT toward the fragment: all rays of the query share one
+        # origin, so tile beams are thin cones and the cull prunes far more
+        # clusters.  Same segment and t bound with mirrored backface
+        # culling.  Not in scenes with transparency: their shadows need the
+        # occluder nearest the fragment.
+        reverse = (cfg.shadow_from_light and not scene.has_transparent
                    and i < len(scene.light_kinds)
                    and scene.light_kinds[i] == lights_mod.SPOT)
         # Shadow visibility is discrete: in differentiable mode the query
@@ -234,16 +241,25 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
                 wscene, frag_pos.detach(),
                 torch.where(lit[..., None], sdir, _NAN).detach(),
                 ignore_tri=hit_tri, cull=True, t_max=sdist.detach(),
-                any_hit=True)
+                any_hit=not scene.has_transparent)
         obstructed = shadow.hit & (shadow.t < sdist)
-        light_amount = torch.where(obstructed, 1.0, 0.0)
+        if scene.has_transparent:
+            occ = _gather_tri(scene, shadow.tri, cfg.grad_channels)
+            occ_transparent = scene.mat_transparent[
+                scene.mesh_material[occ["mesh"]]]
+            light_amount = torch.where(
+                obstructed, torch.where(occ_transparent, occ["color"][..., 3],
+                                        1.0), 0.0)
+        else:
+            light_amount = torch.where(obstructed, 1.0, 0.0)
         total = total + contrib * (1.0 - light_amount)[..., None]
     return total
 
 
 def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
                  is_max_level: bool, query):
-    """One wavefront level: intersect + shade + spawn the reflection child."""
+    """One wavefront level: intersect, shade, and spawn the reflection
+    child and (in scenes with transparency) the refraction child."""
     # Dead lanes become non-finite: they never hit and stay out of the
     # walk's tile beams.
     direction = torch.where(rays.alive[..., None], rays.direction, _NAN)
@@ -260,8 +276,16 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
         hit = query(_detached(scene), rays.origin.detach(),
                     direction.detach(), **qargs)
         td = _gather_tri(scene, hit.tri, cfg.grad_channels)
-        u_d, v_d, t_d = moller_trumbore_safe(rays.origin, rays.direction,
-                                             td["v1"], td["e1"], td["e2"])
+        # Rays that cannot hit (dead lanes; refraction children of a total
+        # internal reflection, whose direction is NaN) recompute with a
+        # zero direction: their values are masked below, and a zero
+        # cotangent times a NaN would turn the gradients of the rows and of
+        # the parents' hit points NaN (the JAX package's do: ROADMAP.md,
+        # queue 3).
+        finite = torch.isfinite(rays.direction).all(-1, keepdim=True)
+        u_d, v_d, t_d = moller_trumbore_safe(
+            rays.origin, torch.where(finite, rays.direction, 0.0), td["v1"],
+            td["e1"], td["e2"])
         if cfg.soft_tau > 0.0:
             # Straight-through silhouette gradients: the forward is the
             # exact hard visibility; the backward sees a sigmoid of the
@@ -297,35 +321,69 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
     light = _light_result(scene, cfg, frag_pos, normal, tri, mask, query)
     surface = _surface_color(scene, cfg, td, mat, hit.u, hit.v)
     refl = scene.mat_reflect[mat][..., None]
+    alpha = td["color"][..., 3]
+    transparent = scene.mat_transparent[mat] & scene.has_transparent
 
     if is_max_level:
         # Reflection-limit shading: S * L (RayTracer.cs:708-727).
         a = surface * light
         b = torch.zeros_like(a)
-        child = None
+        c = torch.zeros_like(alpha)
+        children = None
     else:
-        a = (1.0 - refl) * surface * light
-        b = refl * light
+        a_opaque = (1.0 - refl) * surface * light
+        b_opaque = refl * light
+        t3 = transparent[..., None]
+        a = torch.where(t3, alpha[..., None] * a_opaque, a_opaque)
+        b = torch.where(t3, alpha[..., None] * b_opaque, b_opaque)
+        c = torch.where(transparent, 1.0 - alpha, 0.0)
+        keep_tri = torch.where(mask, tri, -1)
         # Reflection child (RayTracer.cs:545-559).
-        refl_dir = normalize(reflect(rays.direction, normal))
         convex = scene.mesh_convex[td["mesh"]]
-        refl_ignore_mesh = torch.where(convex, td["mesh"], -1)
-        child = RaySet(
+        refl_rays = RaySet(
             origin=frag_pos,
-            direction=refl_dir,
-            ignore_tri=torch.where(mask, tri, -1),
-            ignore_mesh=torch.where(mask, refl_ignore_mesh, -1),
+            direction=normalize(reflect(rays.direction, normal)),
+            ignore_tri=keep_tri,
+            ignore_mesh=torch.where(mask & convex, td["mesh"], -1),
+            cur_ref=rays.cur_ref,
             alive=mask & (b != 0.0).any(-1),
         )
+        refr_rays = None
+        if scene.has_transparent:
+            # Refraction child (RayTracer.cs:656-699): n1/n2 from the
+            # medium's index against the material's; the child travels in
+            # n2.
+            ior = scene.mat_refraction[mat]
+            inside = rays.cur_ref == ior
+            n1 = torch.where(inside, 1.0, ior)
+            n2 = torch.where(inside, rays.cur_ref, 1.0)
+            refr_rays = RaySet(
+                origin=frag_pos,
+                direction=normalize(refract_xna(rays.direction, normal, n1,
+                                                n2)),
+                ignore_tri=keep_tri,
+                ignore_mesh=torch.full_like(tri, -1),
+                cur_ref=n2,
+                alive=mask & (c != 0.0),
+            )
+        children = (refl_rays, refr_rays)
     m3 = mask[..., None]
     a = torch.where(m3, a, 0.0)
     b = torch.where(m3, b, 0.0)
+    c = torch.where(mask, c, 0.0)
     if soft_vis is not None:
         # Zero-forward residual: hit lanes scaled by (1 + soft - sg(soft)),
         # so silhouette-adjacent hits carry d(pixel)/d(edge distance).
-        stm = (1.0 + torch.where(mask, soft_vis, 0.0))[..., None]
-        a, b = a * stm, b * stm
-    return LevelRecord(mask=mask, a=a, b=b), child
+        stm = 1.0 + torch.where(mask, soft_vis, 0.0)
+        a, b, c = a * stm[..., None], b * stm[..., None], c * stm
+    return LevelRecord(mask=mask, a=a, b=b, c=c), children
+
+
+def _inverse(order):
+    """The inverse of the permutation ``order``."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return inv
 
 
 def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
@@ -343,19 +401,61 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
         direction=direction,
         ignore_tri=torch.full((r0,), -1, dtype=torch.int32, device=dev),
         ignore_mesh=torch.full((r0,), -1, dtype=torch.int32, device=dev),
+        cur_ref=torch.ones((r0,), dtype=torch.float32, device=dev),
         alive=torch.ones((r0,), dtype=torch.bool, device=dev),
     )
+    # The children's layout (module docstring): dual-branch doubling, or
+    # merged into the parents' slots.
+    dual = scene.has_transparent and scene.has_dual_branch
+    merged = scene.has_transparent and not scene.has_dual_branch
     records = []
+    orders = [None] * (cfg.max_reflections + 1)
     for level in range(cfg.max_reflections + 1):
         is_max = level == cfg.max_reflections
-        record, child = _trace_level(scene, cfg, rays, is_max, query)
+        record, children = _trace_level(scene, cfg, rays, is_max, query)
+        if not is_max:
+            refl_rays, refr_rays = children
+            if dual:
+                rays = RaySet(*(torch.cat([x, y])
+                                for x, y in zip(refl_rays, refr_rays)))
+                if cfg.compact_wavefront:
+                    # Live rays first (a stable permutation), so dead slots
+                    # fill whole walk tiles that end in their prologue.
+                    from raytpu_torch.kernels.fused import compact_order
+
+                    order = compact_order(~rays.alive)
+                    rays = RaySet(*(x[order] for x in rays))
+                    orders[level + 1] = order
+            elif merged:
+                # One live child per parent: it takes the parent's slot,
+                # and the two combine weights fold into b.
+                sel = refl_rays.alive
+                rays = RaySet(*(
+                    torch.where(sel.reshape(sel.shape + (1,) * (x.ndim - 1)),
+                                x, y) for x, y in zip(refl_rays, refr_rays)))
+                record = record._replace(
+                    b=torch.where(sel[:, None], record.b,
+                                  record.c[:, None].expand_as(record.b)),
+                    c=torch.zeros_like(record.c))
+            else:
+                rays = refl_rays
         records.append(record)
-        rays = child
 
     # Backward combine (child colors → parent), deepest level first.
     color = None
-    for rec in reversed(records):
-        node = rec.a if color is None else rec.a + rec.b * color
+    for level in reversed(range(cfg.max_reflections + 1)):
+        rec = records[level]
+        rl = rec.a.shape[0]
+        if color is None:
+            node = rec.a
+        else:
+            if orders[level + 1] is not None:
+                # The child level ran live-first: back to [reflection |
+                # refraction] slot order.
+                color = color[_inverse(orders[level + 1])]
+            node = rec.a + rec.b * color[:rl]
+            if dual:
+                node = node + rec.c[..., None] * color[rl:]
         node = torch.where(rec.mask[..., None], node, 0.0)
         if cfg.quantize == Quantize.BOUNCE:
             node = quantize_color(node)

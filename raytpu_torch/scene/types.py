@@ -103,7 +103,8 @@ class FlatScene:
     e2 n1 n2 n3 (3 each), uv1 uv2 uv3 (2 each), snormal (3), color (4),
     mesh id (1, int32 bits).  ``clusters`` holds the walk's tables
     (accel/clusters.py): ``block`` (NCG, 24, C), ``aabb`` (6, NCG),
-    ``plane`` (5, NCG) and ``root`` (8,)."""
+    ``root`` (8,) and ``plane`` (5, NCG) or, baked at cluster size 64 or 32,
+    ``sub_aabb`` (subk, 6, NCG) and ``sub_plane`` (subk, 5, NCG)."""
 
     tri_shade: torch.Tensor
     clusters: dict

@@ -98,15 +98,19 @@ def test_bridge_round_trip(baked):
 
 
 def test_bridge_rejects_out_of_range_ids():
-    jflat = jax_bake(sphere_and_plane("jax"), 16)
-    arrays, meta = jax_arrays(jflat)
-    arrays["clusters"]["block"][0, 16, 0] = np.int32(
-        jflat.num_tris).view(np.float32)
-    with pytest.raises(ValueError, match="out of range"):
+    """A triangle id past the scene's rows raises, in a cluster_size-16
+    bake and in a subcluster bake (cluster size 64, which the bridge now
+    carries across), and so does a bake without its fitted-plane rows."""
+    for csize in (16, 64):
+        jflat = jax_bake(sphere_and_plane("jax"), csize)
+        arrays, meta = jax_arrays(jflat)
         flat_scene_from_numpy(arrays, meta, device="cpu")
-    arrays["clusters"] = jax_arrays(jax_bake(sphere_and_plane("jax"), 64))[0][
-        "clusters"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        arrays["clusters"]["block"][0, 16, 0] = np.int32(
+            jflat.num_tris).view(np.float32)
+        with pytest.raises(ValueError, match="out of range"):
+            flat_scene_from_numpy(arrays, meta, device="cpu")
+    del arrays["clusters"]["sub_plane"]
+    with pytest.raises(ValueError, match="sub_plane"):
         flat_scene_from_numpy(arrays, meta, device="cpu")
 
 

@@ -20,13 +20,18 @@ import torch
 from raytpu.config import Intersector, Quantize, RenderConfig, RenderMode
 from raytpu.core.camera import Camera as JaxCamera
 from raytpu.core.camera import camera_rays as jax_camera_rays
+from raytpu.diff.fit import render_loss as jax_render_loss
+from raytpu.diff.params import extract_params as jax_extract_params
 from raytpu.render.wavefront import render_rays as jax_render_rays
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.core.xna import quantize_color
+from raytpu_torch.diff.fit import render_loss
+from raytpu_torch.diff.params import extract_params
+from raytpu_torch.kernels.fused import nearest_hit_fused
 from raytpu_torch.render.wavefront import (block_order_perm, render_image,
                                            render_rays)
-from tests.torch_scenes import jax_bake, sphere_and_plane, t, terrain
-from tests.torch_scenes import to_port
+from tests.torch_scenes import flagship, jax_bake, sphere_and_plane, t
+from tests.torch_scenes import terrain, to_port
 
 torch.set_num_threads(1)
 
@@ -100,13 +105,16 @@ def test_own_bake_renders_like_bridge(rendered):
 
 
 def test_walk_opt_ins_render_the_same_image(rendered):
-    """``cull_pretest`` and ``cull_recull`` change the walk's shape, never
-    its hits: the same colors bit for bit."""
+    """``cull_pretest`` and ``cull_recull``, and ``cull_chunk`` (two
+    clusters a trip, in the same pick order), change the walk's shape,
+    never its hits: the same colors bit for bit."""
     name, cfg, _, (o, d), _, colors = rendered
     build, csize, _, _ = CASES[name]
     flat = build("torch").flatten(device="cpu", cluster_size=csize)
-    opt = dataclasses.replace(cfg, cull_pretest=True, cull_recull=2)
-    assert torch.equal(render_rays(flat, opt, o, d), colors)
+    for change in (dict(cull_pretest=True, cull_recull=2),
+                   dict(cull_chunk=2)):
+        opt = dataclasses.replace(cfg, **change)
+        assert torch.equal(render_rays(flat, opt, o, d), colors), change
 
 
 @pytest.mark.parametrize("change", [
@@ -116,7 +124,7 @@ def test_walk_opt_ins_render_the_same_image(rendered):
     dict(intersector=Intersector.BRUTE),
     dict(intersector=Intersector.TILED),
     dict(intersector=Intersector.OCTREE),
-    dict(cull_chunk=2),
+    dict(render_mode=RenderMode.CONVEXFLAG),
     dict(tri_block=1024),
     dict(brute_force_max_tris=0),
 ])
@@ -127,15 +135,17 @@ def test_unported_config_raises(change):
 
 
 def test_unported_scene_and_entry_points_raise():
-    glass = sphere_and_plane("torch", transparent=True).flatten(
-        device="cpu", cluster_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_image(glass, CFG)
+    """What the renderer and the walk still refuse: ``render_image``'s
+    progress and watch options, and the reference's matmul pair test
+    (``mxu``)."""
     flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(flat, CFG, progress=lambda done, total: None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sphere_and_plane("torch").flatten(device="cpu", cluster_size=64)
+        render_image(flat, CFG, watch_path="frame.png")
+    o, d = camera_rays(Camera(), 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        nearest_hit_fused(flat, o, d, mxu=True)
 
 
 @pytest.mark.parametrize("change", [dict(cull_prepick=8),
@@ -160,3 +170,77 @@ def test_render_with_overflow_strategies(change):
         with pytest.raises(ValueError, match="prepick"):
             render_image(flat, dataclasses.replace(
                 cfg, cull_pretest=True, **change), cam)
+
+
+# Transparent scenes, baked at cluster_size 32 (subclusters): the merged
+# layout (a transparent sphere that does not reflect over a reflective
+# ground: at most one live child per parent) and the dual-branch flagship
+# twin (its glass both reflects and refracts).  The point is the shading,
+# so the reference renders with its exact XLA intersector (TILED, three
+# times faster to compile than its Pallas kernel, which it agrees with to
+# ~1e-6 here); the subcluster walk is held to the Pallas kernel in
+# test_torch_subcluster.py.  Tolerance atol 1e-5, as above.
+TRANSPARENT = {
+    "merged": (lambda p: sphere_and_plane(p, reflect=0.0, transparent=True,
+                                          plane_reflect=0.3, light="both"),
+               (3.0, 16.0, 32.0)),
+    "flagship": (flagship, (0.0, 16.0, 32.0)),
+}
+TCFG = dataclasses.replace(CFG, width=16, height=16, tile_pixels=16 * 16,
+                           cull_tile=64, max_reflections=2)
+JCFG = dataclasses.replace(TCFG, intersector=Intersector.TILED)
+
+
+def _transparent_case(name, size):
+    build, position = TRANSPARENT[name]
+    jflat = jax_bake(build("jax"), 32)
+    o, d = jax.jit(lambda: jax_camera_rays(JaxCamera(position=position),
+                                           size, size))()
+    perm = block_order_perm(size, size, 8, "cpu").numpy()
+    return build, jflat, np.asarray(o)[perm], np.asarray(d)[perm]
+
+
+@pytest.mark.parametrize("name", sorted(TRANSPARENT))
+def test_transparent_render_matches_reference(name):
+    """Baked transparency (queue 1 item 1): shadows through transparent
+    occluders, the refraction children and the merged or dual-branch
+    level layout, against the JAX render; the port's own bake renders the
+    same colors bit for bit."""
+    build, jflat, o, d = _transparent_case(name, 16)
+    assert jflat.has_transparent
+    assert jflat.has_dual_branch == (name == "flagship")
+    ref = np.asarray(jax.jit(lambda s, o, d: jax_render_rays(s, JCFG, o, d))(
+        jflat, o, d))
+    colors = render_rays(to_port(jflat), TCFG, t(o), t(d))
+    assert (ref.max(-1) > 0).mean() > 0.3
+    np.testing.assert_allclose(colors.numpy(), ref, rtol=0, atol=1e-5)
+    own = build("torch").flatten(device="cpu", cluster_size=32)
+    assert torch.equal(render_rays(own, TCFG, t(o), t(d)), colors)
+
+
+def test_transparent_gradients_match_reference():
+    """Gradients of the flagship twin's loss (the dryrun's fields and
+    ``soft_tau``, one reflection) against the JAX package's, rtol 1e-4 and
+    atol 1e-6 as in test_torch_diff.py.  The reference's vertex
+    gradients are NaN where a ray that cannot hit (a dead lane, or the
+    refraction child of a total internal reflection: NaN direction) meets
+    a zero cotangent (ROADMAP.md queue 3); the port's are finite
+    everywhere and are compared where the reference's are."""
+    cfg = dataclasses.replace(TCFG, max_reflections=1, differentiable=True,
+                              soft_tau=0.01)
+    fields = ("tri_v1", "textures", "mat_reflect")
+    _, jflat, o, d = _transparent_case("flagship", 16)
+    target = np.random.default_rng(6).uniform(0, 1, (256, 3)).astype(
+        np.float32)
+    jcfg = dataclasses.replace(cfg, intersector=Intersector.TILED)
+    jgrad = jax.jit(jax.grad(lambda p: jax_render_loss(
+        jflat, jcfg, p, o, d, target)))(jax_extract_params(jflat, fields))
+    params = extract_params(to_port(jflat), fields)
+    render_loss(to_port(jflat), cfg, params, t(o), t(d), t(target)).backward()
+    for k in fields:
+        g, ref = params[k].grad.numpy(), np.asarray(jgrad[k])
+        assert np.isfinite(g).all(), k
+        sure = np.isfinite(ref)
+        assert sure.mean() > 0.5
+        np.testing.assert_allclose(g[sure], ref[sure], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

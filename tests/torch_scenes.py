@@ -23,14 +23,15 @@ PACKAGES = {
 
 
 def sphere_and_plane(pkg: str, reflect=0.3, textured=False, light="spot",
-                     transparent=False):
-    """tests/scenes.py::sphere_and_plane_scene, built with ``pkg``'s types."""
+                     transparent=False, plane_reflect=0.0):
+    """tests/scenes.py::sphere_and_plane_scene, built with ``pkg``'s types
+    (``plane_reflect``: the ground's reflectiveness)."""
     types, proc, lights = PACKAGES[pkg]
     mat_s = types.Material(
         reflectiveness=reflect, transparent=transparent,
         refraction_index=1.32, use_texture=False,
         diffuse_color=(0.9, 0.2, 0.2, 0.65 if transparent else 1.0))
-    mat_p = types.Material(reflectiveness=0.0,
+    mat_p = types.Material(reflectiveness=plane_reflect,
                            diffuse_color=(0.4, 0.45, 0.5, 1.0))
     if textured:
         mat_p.use_texture = True
@@ -52,6 +53,40 @@ def sphere_and_plane(pkg: str, reflect=0.3, textured=False, light="spot",
                                                  material=mat_p)]),
         ],
         lights=lts)
+
+
+def flagship(pkg: str):
+    """__graft_entry__.py::_flagship_scene, built with ``pkg``'s types: a
+    glass sphere (reflective and transparent: a dual-branch material), a
+    textured crate and a reflective ground, a spot and a directional
+    light."""
+    types, proc, lights = PACKAGES[pkg]
+    yy, xx = np.mgrid[0:32, 0:32]
+    checker = np.where((((yy // 4) + (xx // 4)) % 2 == 0)[..., None], 255, 40)
+    checker = np.broadcast_to(checker, (32, 32, 3)).astype(np.uint8)
+    glass = types.Material(reflectiveness=0.7, transparent=True,
+                           refraction_index=1.32,
+                           diffuse_color=(0.9, 0.9, 1.0, 0.55))
+    crate = types.Material(reflectiveness=0.2, use_texture=True,
+                           texture=checker)
+    ground = types.Material(reflectiveness=0.1,
+                            diffuse_color=(0.4, 0.45, 0.5, 1.0))
+    return types.Scene(
+        objects=[
+            types.SceneObject(
+                meshes=[proc.uv_sphere(radius=4.0, stacks=10, slices=16,
+                                       material=glass, convex=True)],
+                position=(-5.0, 4.0, 0.0)),
+            types.SceneObject(meshes=[proc.box(size=(6.0, 6.0, 6.0),
+                                               material=crate)],
+                              position=(5.0, 3.0, 0.0),
+                              rotation=(0.0, 0.6, 0.0)),
+            types.SceneObject(meshes=[proc.plane(size=(60.0, 60.0),
+                                                 material=ground)]),
+        ],
+        lights=[lights.SpotLight(position=(0, 5, 20),
+                                 direction=(0.0, -0.2425356, -0.9701425)),
+                lights.DirectionalLight(direction=(0.3, -0.9, 0.1))])
 
 
 def terrain(pkg: str, divisions: int = 24):
