@@ -5,8 +5,9 @@
 Phases, each printing its lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: compile the walk kernels (``raytpu_torch/kernels/csrc/walk.cu``
-   and ``subwalk.cu``, one ``nvcc`` each, started together);
+2. build: compile the walk kernels (``raytpu_torch/kernels/csrc/walk.cu``,
+   ``subwalk.cu`` and ``mxuwalk.cu``, one ``nvcc`` each, started
+   together);
 3. small: every walk kernel variant against its plain PyTorch version, bit
    for bit, trip counts and resolved flags included (nearest and any-hit;
    pretest on and off; re-cull every 0, 2 and 6 trips; the prepick walk
@@ -21,6 +22,22 @@ Phases, each printing its lines:
 4. frame: bench.py's ~1M-triangle terrain at 1024x1024 through
    ``render_rays`` with its launch counters checked, then the frame's
    queries through the kernels and the plain walk;
+4a. mxu: the tensor-core walk (``mxu_walk_kernel``, the matmul pair test
+   on a ``gblock`` bake) against its plain version at both precisions on
+   small scenes (cluster sizes 128, 32 and 16; nearest and any-hit; cull
+   True, False and "reverse"; pretest and re-cull; a budget of 8 trips
+   and the phase-1 compaction, card against CPU; chunk_k 2; ignore ids),
+   every exception traced to a pair within MXU_EPS; then the bench frame baked
+   with ``gblock`` through ``nearest_hit_fused(mxu=True)`` at both
+   precisions, its launch counters checked, every walk call against the
+   plain version, timed, with its bound; and the "highest" frame against
+   the exact walk's frame, every pixel that differs traced;
+4b. query: the flagship at 1024x1024 with three bounces through ``AUTO``
+   (the brute-force sweep: no walk launched) against the walk at the 32
+   and 128 bakes, every query's differing rays traced; the bench frame's
+   queries through the tiled and octree backends against the walk's hits,
+   timed (octree steps and host reads); the bench frame with
+   ``shadow_clearance=True`` against the default frame;
 5. instanced: one bake of that terrain instanced 4 times (2x2, rotated by
    multiples of 90 degrees, ~4M triangles in the world) through
    ``render_image_instanced`` at 1024x1024 with one reflection, the
@@ -69,9 +86,9 @@ Phases, each printing its lines:
     host syncs of its per-instance pass skips, and the flagship frame's
     (32 bake) device ms: the walks against the shading's kernels.
 
-Then one JSON line with the kernels (time, plain time, launches, trips per
-tile and the least time the card could take for the same work) and, last,
-the device line.  Any failure raises and the script exits nonzero; without
+Each phase prints its seconds (``[clock]``).  Then one JSON line with the
+kernels (time, plain time, launches, trips per tile and the least time the
+card could take for the same work) and, last, the device line.  Any failure raises and the script exits nonzero; without
 a CUDA device it exits nonzero before printing a result.  The compiler log
 and every comparison and time go to ``--out`` (default
 ``build/chip_smoke``).
@@ -378,7 +395,7 @@ def phase_build(out_dir):
     return seconds
 
 
-def _small_scene(cluster_size, device, light="both"):
+def _small_scene(cluster_size, device, light="both", **flatten_kw):
     from raytpu_torch.scene.lights import DirectionalLight, SpotLight
     from raytpu_torch.scene.procedural import plane, uv_sphere
     from raytpu_torch.scene.types import Material, Scene, SceneObject
@@ -396,7 +413,7 @@ def _small_scene(cluster_size, device, light="both"):
                  SceneObject(meshes=[plane(size=(40.0, 40.0),
                                            material=mat_p)])],
         lights=lights[light]).flatten(cluster_size=cluster_size,
-                                      device=device)
+                                      device=device, **flatten_kw)
 
 
 def _small_instanced_scene(reflect, transparent):
@@ -532,7 +549,7 @@ def _small_subcluster(dev, record, note):
 
 
 def phase_small(dev, record):
-    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch import Intersector, Quantize, RenderConfig
     from raytpu_torch.core.camera import Camera
     from raytpu_torch.kernels.fused import (kernel_name, nearest_hit_fused,
                                             pack_query)
@@ -614,8 +631,11 @@ def phase_small(dev, record):
                                          "differs from the CPU")
 
     _small_subcluster(dev, record, note)
+    # The walk on the card against the CPU: small scenes take the sweep
+    # under AUTO, so the walk is named.
     cfg = RenderConfig(width=64, height=64, max_reflections=2,
-                       quantize=Quantize.NONE, tile_pixels=64 * 64)
+                       quantize=Quantize.NONE, tile_pixels=64 * 64,
+                       intersector=Intersector.PALLAS)
     cpu = render_image(_small_scene(16, "cpu"), cfg)
     gpu = render_image(_small_scene(16, dev), cfg).cpu()
     _card_vs_cpu("64x64 render, 2 reflections", gpu, cpu, record)
@@ -784,7 +804,8 @@ def phase_frame(dev, record):
     from raytpu_torch.render.wavefront import render_rays
 
     t0 = time.perf_counter()
-    flat = bench_scene(TRIS).flatten(cluster_size=CLUSTER_SIZE, device=dev)
+    flat = bench_scene(TRIS).flatten(cluster_size=CLUSTER_SIZE, device=dev,
+                                     build_octree=False)
     torch.cuda.synchronize()
     bake_s = time.perf_counter() - t0
     ncg = flat.clusters["block"].shape[0]
@@ -828,7 +849,8 @@ def phase_instanced(dev, record):
 
     t0 = time.perf_counter()
     iscene = prender.flatten_instanced(instanced_frame_scene(TRIS),
-                                       cluster_size=CLUSTER_SIZE, device=dev)
+                                       cluster_size=CLUSTER_SIZE, device=dev,
+                                       build_octree=False)
     torch.cuda.synchronize()
     bake_s = time.perf_counter() - t0
     bake = iscene.bakes[0]
@@ -1352,14 +1374,14 @@ def _card_vs_cpu_grads(dev, record):
     one reflection."""
     import dataclasses
 
-    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch import Intersector, Quantize, RenderConfig
     from raytpu_torch.core.camera import Camera, camera_rays
     from raytpu_torch.diff.fit import render_loss
     from raytpu_torch.diff.params import GEOMETRY, TEXTURE, extract_params
 
     cfg = RenderConfig(width=32, height=32, max_reflections=1,
                        quantize=Quantize.NONE, tile_pixels=32 * 32,
-                       cull_tile=64)
+                       cull_tile=64, intersector=Intersector.PALLAS)
     cam = Camera(position=(3.0, 16.0, 32.0))
     host = _small_instanced_scene(0.3, False)
     target = torch.from_numpy(np.random.default_rng(5).uniform(
@@ -1450,7 +1472,7 @@ def phase_fit(dev, card, flat, record):
     o, d = _frame_rays(FIT_RES, dev)
     t0 = time.perf_counter()
     textured = bench_scene(TRIS, textured=True).flatten(
-        cluster_size=CLUSTER_SIZE, device=dev)
+        cluster_size=CLUSTER_SIZE, device=dev, build_octree=False)
     torch.cuda.synchronize()
     print(f"  textured terrain baked in {time.perf_counter() - t0:.1f} s")
     out = {}
@@ -1521,7 +1543,7 @@ def phase_fit(dev, card, flat, record):
                     aspect=1.0)
     target_img = render_image(flat, cfg, camera)
     scaled = bench_scene(TRIS, height_scale=FIT_HEIGHT_SCALE).flatten(
-        cluster_size=CLUSTER_SIZE, device=dev)
+        cluster_size=CLUSTER_SIZE, device=dev, build_octree=False)
     losses = []
     t0 = time.perf_counter()
     fitted, params, hist = fit(
@@ -1717,7 +1739,8 @@ def phase_subcluster_frames(dev, flat128, cfg, rays, img128, frame_rows,
     out = {}
     for csize in SUB_FRAME_SIZES:
         t0 = time.perf_counter()
-        flat = bench_scene(TRIS).flatten(cluster_size=csize, device=dev)
+        flat = bench_scene(TRIS).flatten(cluster_size=csize, device=dev,
+                                         build_octree=False)
         torch.cuda.synchronize()
         ncg = flat.clusters["block"].shape[0]
         print(f"[subcluster frame] the bench frame at cluster size {csize}: "
@@ -1811,7 +1834,7 @@ def flagship_scene():
 def _flagship_grads(dev, record):
     """render_loss gradients of the dryrun's fields on the flagship's 32
     bake, on the card and on the CPU, at 32x32."""
-    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch import Intersector, Quantize, RenderConfig
     from raytpu_torch.core.camera import Camera, camera_rays
     from raytpu_torch.diff.fit import render_loss
     from raytpu_torch.diff.params import extract_params
@@ -1819,7 +1842,8 @@ def _flagship_grads(dev, record):
     res = FLAGSHIP_GRAD_RES
     cfg = RenderConfig(width=res, height=res, max_reflections=1,
                        quantize=Quantize.NONE, tile_pixels=res * res,
-                       cull_tile=64, soft_tau=0.01)
+                       cull_tile=64, soft_tau=0.01,
+                       intersector=Intersector.PALLAS)
     cam = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
     target = torch.full((res * res, 3), 0.5)
     grads, losses = {}, {}
@@ -1853,7 +1877,7 @@ def phase_flagship(dev, card, record):
     counted); every walk call of both bakes against the plain walk; frame
     ms and live rays/s with the ray slots and live rays per level; one step
     of the dryrun's fit on the 32 bake; card against CPU gradients."""
-    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch import Intersector, Quantize, RenderConfig
     from raytpu_torch.core.camera import Camera, camera_rays
     from raytpu_torch.diff.fit import make_fit_step
     from raytpu_torch.diff.params import extract_params
@@ -1862,9 +1886,12 @@ def phase_flagship(dev, card, record):
                                                block_order_perm,
                                                render_image, trace_colors)
 
+    # The walk's frame: the flagship (302 triangles) takes the sweep under
+    # AUTO ([query] renders it so), so the walk is named.
     cfg = RenderConfig(width=FLAGSHIP_RES, height=FLAGSHIP_RES,
                        max_reflections=FLAGSHIP_REFLECTIONS,
-                       tile_pixels=FLAGSHIP_RES ** 2)
+                       tile_pixels=FLAGSHIP_RES ** 2,
+                       intersector=Intersector.PALLAS)
     camera = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
     bakes = {c: flagship_scene().flatten(cluster_size=c, device=dev)
              for c in FLAGSHIP_SIZES}
@@ -1942,7 +1969,8 @@ def phase_flagship(dev, card, record):
     fcfg = RenderConfig(width=FLAGSHIP_FIT_RES, height=FLAGSHIP_FIT_RES,
                         max_reflections=1, quantize=Quantize.NONE,
                         tile_pixels=FLAGSHIP_FIT_RES ** 2,
-                        differentiable=True, soft_tau=0.01)
+                        differentiable=True, soft_tau=0.01,
+                        intersector=Intersector.PALLAS)
     fo, fd = camera_rays(camera, FLAGSHIP_FIT_RES, FLAGSHIP_FIT_RES,
                          device=dev)
     target = torch.full_like(fo, 0.5)
@@ -1986,7 +2014,8 @@ def phase_instanced32(dev, inst, record):
     iscene128, icfg, camera, img128 = inst
     t0 = time.perf_counter()
     iscene = prender.flatten_instanced(instanced_frame_scene(TRIS),
-                                       cluster_size=32, device=dev)
+                                       cluster_size=32, device=dev,
+                                       build_octree=False)
     torch.cuda.synchronize()
     print(f"[instanced 32] the instanced frame from a cluster_size=32 bake "
           f"({iscene.bakes[0].clusters['block'].shape[0]} blocks), baked in "
@@ -2040,6 +2069,616 @@ def phase_instanced32(dev, inst, record):
     return out
 
 
+# ---- [mxu]: the matmul pair test on the tensor cores ------------------------
+
+# The tolerance of the tensor-core walk against its plain version, and of
+# its frame against the exact walk's.  Both versions round their inputs to
+# TF32 alike and sum exact products in float32; only the order of the sums
+# differs (and, against the exact walk, the dropped a_lo*b_lo terms and the
+# rounding of the lo parts: ~3 * 2^-22 of each product).  On the bench
+# terrain a pair's terms reach ~1,100 x |det| (|d x o| ~ 45, edges ~0.057,
+# |det| ~ 0.0032), so u and v err by up to ~1e-4 (sum order) and ~8e-4
+# (3xTF32 against float32).  A pair whose det-space margin, min(|udet|,
+# |vdet|, |det - udet - vdet|, |tdet|) / |det|, or whose distance from the
+# ray's t bound, |t - t_max| / t_max, is below MXU_EPS may be accepted by one
+# and not the other; an exact-t tie within MXU_EPS relative may go to either
+# triangle.  Winners that agree: t within MXU_RTOL, u and v within MXU_EPS.
+MXU_EPS = 4e-3
+MXU_RTOL = 1e-3
+# Operations on the CUDA cores per ray-triangle pair of the tensor-core walk,
+# read off mxuwalk.cu: the acceptance (5 compares, 1 add), two id compares
+# and the best-t compare (nearest), or the t-bound product and compare
+# (any-hit).  The tensor-core work is 2 * 16 * 4C FLOP per ray and tested
+# block, x3 for "highest", at the H100's 495 TFLOP/s (TF32, dense).
+OPS_PAIR_MXU = {False: 9, True: 10}
+PEAK_TF32 = 495e12
+# The small comparisons: cluster sizes (32: a subcluster bake, walked at
+# block granularity) and walk shapes (kind, options).
+MXU_SIZES = (128, 32, 16)
+MXU_SHAPES = (
+    ("nearest ignore", False, {}), ("any-hit t_max", True, {}),
+    ("nearest pretest recull", False, {"pretest": True, "recull_every": 2}),
+    ("any-hit pretest recull", True, {"pretest": True, "recull_every": 2}),
+    ("nearest budget 8", False, {"max_trips": 8}),
+    ("any-hit budget 8", True, {"max_trips": 8}),
+    ("nearest chunk_k 2", False, {"chunk_k": 2}))
+# Colour change of a pixel, beyond the discrete differences (another
+# primary triangle, another shadow verdict), that would be a fault.
+MXU_PIXEL_TOL = 1e-2
+
+
+def near_margin(clusters, q, rays, cull, eps, mxu=None):
+    """For rays ``rays`` (indices into the padded query ``q``): the least
+    det-space margin over the pairs that a rounding could accept (INF
+    where no pair is near), from the exact float32 triple products of
+    every block or, with ``mxu``, from that precision's ``R @ G``
+    (``mxu_values``).  A pair is near when it is within ``eps`` of
+    acceptance (u, v >= -eps, u + v <= 1 + eps, t >= -eps, t <= t_max
+    (1 + eps), the facing of ``cull``, not ignored); its margin is
+    min(|udet|, |vdet|, |det - udet - vdet|, |tdet|) / |det|, or
+    |t - t_max| / t_max when that is smaller."""
+    from raytpu_torch.kernels.fused import GEO_ROWS, mxu_values
+
+    g = clusters["block"][:, :GEO_ROWS]  # (ncg, 18, C)
+    ncg, _, c = g.shape
+    row = lambda i: g[None, :, i, :]  # noqa: E731
+    if mxu:
+        coef = clusters["gblock"][:, :16].permute(1, 0, 2).reshape(16, -1)
+    out = []
+    for s in range(0, rays.shape[0], 8):
+        idx = rays[s:s + 8]
+        o, d = q.origin[idx], q.direction[idx]
+        col = lambda x: x[:, None, None]  # noqa: E731
+        ox, oy, oz = (col(o[:, k]) for k in range(3))
+        dx, dy, dz = (col(d[:, k]) for k in range(3))
+        wx, wy, wz = dy * oz - dz * oy, dz * ox - dx * oz, dx * oy - dy * ox
+        if mxu:
+            rmat = torch.cat(
+                [a[:, 0] for a in (dx, dy, dz, wx, wy, wz, ox, oy, oz)]
+                + [torch.ones_like(dx[:, 0])]
+                + [torch.zeros_like(dx[:, 0])] * 6, dim=1)
+            vals = mxu_values(rmat, coef, mxu).reshape(-1, ncg, 4, c)
+            det, udet, vdet, tdet = vals.unbind(2)
+        else:
+            det = dx * row(0) + dy * row(1) + dz * row(2)
+            udet = (wx * row(6) + wy * row(7) + wz * row(8) + dx * row(3)
+                    + dy * row(4) + dz * row(5))
+            vdet = (wx * row(12) + wy * row(13) + wz * row(14) + dx * row(9)
+                    + dy * row(10) + dz * row(11))
+            tdet = row(15) - (ox * row(0) + oy * row(1) + oz * row(2))
+        u, v, t = udet / det, vdet / det, tdet / det
+        tb = col(q.t_max[idx])
+        tid = g[None, :, 16].view(torch.int32)
+        mesh = g[None, :, 17].view(torch.int32)
+        facing = (det < 0 if cull is True else det > 0 if cull == "reverse"
+                  else det != 0)
+        near = ((u >= -eps) & (v >= -eps) & (u + v <= 1 + eps) & (t >= -eps)
+                & (t <= tb * (1 + eps)) & facing & (tid >= 0)
+                & (tid != col(q.ignore_tri[idx]))
+                & (mesh != col(q.ignore_mesh[idx])))
+        m = torch.stack([udet.abs(), vdet.abs(), (det - udet - vdet).abs(),
+                         tdet.abs()]).amin(0) / det.abs()
+        m = torch.minimum(m, (t - tb).abs() / tb.clamp(min=1.0))
+        m = torch.where(near, m, float("inf"))
+        out.append(m.flatten(1).amin(1))
+    return torch.cat(out) if out else torch.zeros(0, device=q.origin.device)
+
+
+def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
+    """The tensor-core walk (``got``, or a fresh launch) against its plain
+    version on the same padded query: hits and winning slots equal except
+    on rays traced to a pair within MXU_EPS (``near_margin``) or, nearest,
+    an exact-t tie within MXU_EPS; winners that agree within MXU_RTOL (t)
+    and MXU_EPS (u, v); the counters and resolved flags equal where no ray
+    is an exception.  Returns (max abs difference, plain ms, exceptions)."""
+    from raytpu_torch.kernels.fused import walk_cuda, walk_plain
+
+    any_hit = walk["any_hit"]
+    if got is None:
+        got = walk_cuda(clusters, tri_shade, q, **walk)
+    ref, plain_ms = _once_ms(lambda: walk_plain(clusters, tri_shade, q,
+                                                **walk))
+    hk, hp = got.code >= 0, ref.code >= 0
+    differ = hk != hp
+    both = hk & hp
+    if not any_hit:
+        differ |= both & (got.code != ref.code)
+    ex = differ.nonzero()[:, 0]
+    margin = near_margin(clusters, q, ex, walk["cull"], MXU_EPS,
+                         mxu=walk["mxu"])
+    traced = margin < MXU_EPS
+    if not any_hit:
+        tie = both[ex] & ((got.t[ex] - ref.t[ex]).abs()
+                          <= MXU_EPS * ref.t[ex].abs())
+        traced |= tie
+    same = both & ~differ
+    t_err = u_err = abs_err = 0.0
+    if not any_hit and bool(same.any()):
+        dt = (got.t[same] - ref.t[same]).abs()
+        t_err = float((dt / ref.t[same].abs().clamp(min=1e-30)).max())
+        u_err = float(torch.maximum((got.u[same] - ref.u[same]).abs(),
+                                    (got.v[same] - ref.v[same]).abs()).max())
+        abs_err = max(float(dt.max()), u_err)
+    counters = all(torch.equal(getattr(got, f), getattr(ref, f))
+                   for f in ("iters", "tests", "ray_tests", "resolved"))
+    n_ex, untraced = int(ex.shape[0]), int((~traced).sum())
+    worst = float(margin[traced & torch.isfinite(margin)].max()) \
+        if bool((traced & torch.isfinite(margin)).any()) else 0.0
+    rec = {"what": what, "walk": {k: str(v) for k, v in walk.items()},
+           "rays": int(q.origin.shape[0]), "hits": int(hk.sum()),
+           "exceptions": n_ex, "untraced": untraced,
+           "largest_traced_margin": worst, "t_rel_err": t_err,
+           "uv_abs_err": u_err, "counters_equal": counters,
+           "plain_ms": plain_ms}
+    record.append(rec)
+    print(f"  {what}: {walk} rays={q.origin.shape[0]} hits {int(hk.sum())}/"
+          f"{int(hp.sum())}, exceptions {n_ex} (untraced {untraced}, largest "
+          f"margin {worst:.2e}), t rel {t_err:.2e}, u/v abs {u_err:.2e}, "
+          f"counters equal {counters}, plain walk {plain_ms:.0f} ms")
+    if untraced or t_err > MXU_RTOL or u_err > MXU_EPS or (
+            n_ex == 0 and not counters):
+        raise AssertionError(f"the tensor-core walk and its plain version "
+                             f"disagree on {what}")
+    return abs_err, plain_ms, n_ex
+
+
+def mxu_bound(q, out, clusters, walk):
+    """The least time the card could take for one tensor-core walk call:
+    the largest of the tensor-core work (ray tests x 2 * 16 * 4C FLOP, x3
+    for "highest", at 495 TFLOP/s), the CUDA-core work (ray tests x C pairs
+    x OPS_PAIR_MXU) and the bytes (each input read once: the rays, the 16
+    coefficient rows and the id row of every block, the cull tables; each
+    output written once)."""
+    any_hit = walk["any_hit"]
+    ncg, _, csize = clusters["block"].shape
+    r, nt = q.origin.shape[0], q.origin.shape[0] // q.tile
+    tests = float(out.ray_tests.double().sum())
+    passes = 3 if walk["mxu"] == "highest" else 1
+    tc = tests * 2 * 16 * 4 * csize * passes
+    cuda = tests * csize * OPS_PAIR_MXU[any_hit]
+    nbytes = (r * 36 + ncg * (11 + 66 * csize) * 4 + 32 + nt * 12
+              + r * (12 if any_hit else 24))
+    if walk.get("rows", True) and not any_hit:
+        nbytes += r * 128 + int((out.code >= 0).sum()) * 128
+    times = {"tensor cores": tc / PEAK_TF32 * 1e3,
+             "CUDA cores": cuda / PEAK_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    unit = max(times, key=times.get)
+    return {"bound_ms": times[unit],
+            "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit, "tc_flop": tc, "ops": cuda, "bytes": nbytes,
+            "bound_parts_ms": times}
+
+
+def _fused_query(**fused_kw):
+    """A render query through ``nearest_hit_fused(**fused_kw)``, tiles of
+    RAYS_PER_TILE rays."""
+    from raytpu_torch.kernels.fused import nearest_hit_fused
+
+    def query(scene, origin, direction, *, ignore_tri=None, ignore_mesh=None,
+              t_max=None, any_hit=False, cull=True, with_rows=False):
+        return nearest_hit_fused(scene, origin, direction, ignore_tri,
+                                 ignore_mesh, cull, t_max=t_max,
+                                 any_hit=any_hit, tile_size=RAYS_PER_TILE,
+                                 return_rows=with_rows, **fused_kw)
+
+    return query
+
+
+def _recording_hook(calls, base):
+    """A render query that runs ``base`` and keeps each call's inputs and
+    Hit in ``calls``."""
+
+    def query(scene, origin, direction, **kw):
+        res = base(scene, origin, direction, **kw)
+        hit = res[0] if kw.get("with_rows") else res
+        calls.append({"origin": origin, "direction": direction,
+                      "ignore_tri": kw.get("ignore_tri"),
+                      "ignore_mesh": kw.get("ignore_mesh"),
+                      "t_max": kw.get("t_max"),
+                      "any_hit": kw.get("any_hit", False),
+                      "cull": kw.get("cull", True), "hit": hit})
+        return res
+
+    return query
+
+
+def _trace_rays(flat, call, rays, eps, mxu=None):
+    """``near_margin`` of rays ``rays`` of a recorded render query."""
+    from raytpu_torch.kernels.fused import pack_query
+
+    q = pack_query(call["origin"], call["direction"], call["ignore_tri"],
+                   call["ignore_mesh"], call["t_max"], RAYS_PER_TILE)
+    return near_margin(flat.clusters, q, rays, call["cull"], eps, mxu)
+
+
+def _mxu_image(flat, cfg, rays, img_exact, record):
+    """The bench frame with mxu="highest" against the exact walk's frame:
+    every pixel that differs by another primary triangle, another shadow
+    verdict or more than MXU_PIXEL_TOL traced to a pair within MXU_EPS."""
+    from raytpu_torch.render.wavefront import trace_colors
+
+    o, d = rays
+    exact, mxu = [], []
+    img_e = trace_colors(flat, cfg, o, d,
+                         query=_recording_hook(exact, _fused_query()))
+    img_m = trace_colors(flat, cfg, o, d, query=_recording_hook(
+        mxu, _fused_query(mxu=True, mxu_precision="highest")))
+    if not torch.equal(img_e, img_exact):
+        raise AssertionError("the exact frame through the hook is not the "
+                             "frame")
+    (pe, se), (pm, sm) = exact, mxu
+    he, hm = pe["hit"], pm["hit"]
+    d_tri = (he.hit != hm.hit) | (he.hit & hm.hit & (he.tri != hm.tri))
+    d_sh = ~d_tri & (se["hit"].hit != sm["hit"].hit)
+    delta = (img_e - img_m).abs().amax(-1)
+    d_col = ~d_tri & ~d_sh & (delta > MXU_PIXEL_TOL)
+    px_tri, px_sh = d_tri.nonzero()[:, 0], d_sh.nonzero()[:, 0]
+    # Near in the exact walk's rounding or in the matmul's.
+    m_tri = torch.minimum(_trace_rays(flat, pe, px_tri, MXU_EPS),
+                          _trace_rays(flat, pm, px_tri, MXU_EPS, "highest"))
+    tie = he.hit[px_tri] & hm.hit[px_tri] & (
+        (he.t[px_tri] - hm.t[px_tri]).abs() <= MXU_EPS * he.t[px_tri])
+    m_sh = torch.minimum(_trace_rays(flat, se, px_sh, MXU_EPS),
+                         _trace_rays(flat, sm, px_sh, MXU_EPS, "highest"))
+    ok_tri, ok_sh = (m_tri < MXU_EPS) | tie, m_sh < MXU_EPS
+    untraced = int((~ok_tri).sum() + (~ok_sh).sum() + d_col.sum())
+    traced = torch.cat([m_tri[ok_tri & (m_tri < MXU_EPS)], m_sh[ok_sh]])
+    differ = int((delta > 0).sum())
+    print(f"  bench frame, mxu='highest' against the exact walk: pixels "
+          f"that differ at all {differ} (largest {float(delta.max()):.3g}); "
+          f"another primary triangle {px_tri.shape[0]} ({int(tie.sum())} "
+          f"exact-t ties), another shadow verdict {px_sh.shape[0]}, colour "
+          f"beyond {MXU_PIXEL_TOL} otherwise {int(d_col.sum())}; untraced "
+          f"{untraced}; largest traced margin "
+          f"{float(traced.max()) if traced.numel() else 0.0:.2e}")
+    for kind, px, m in (("primary", px_tri, m_tri), ("shadow", px_sh, m_sh)):
+        for i in range(min(8, px.shape[0])):
+            print(f"    pixel {int(px[i])}: {kind} differs, margin "
+                  f"{float(m[i]):.3e}")
+    record.append({"what": "mxu frame vs exact", "pixels_differ": differ,
+                   "primary": int(px_tri.shape[0]), "shadow":
+                   int(px_sh.shape[0]), "colour": int(d_col.sum()),
+                   "untraced": untraced})
+    if untraced:
+        raise AssertionError("the mxu frame differs from the exact frame in "
+                             "pixels no near pair explains")
+    return {"pixels_differ": differ, "primary": int(px_tri.shape[0]),
+            "shadow": int(px_sh.shape[0])}
+
+
+def phase_mxu(dev, card, img_exact, record):
+    """[mxu]: mxu_walk_kernel against its plain version on small scenes
+    (cluster sizes 128, 32 and 16 with gblock; nearest and any-hit; cull
+    True, False and "reverse"; pretest and re-cull; a budget of 8 trips
+    and the phase-1 compaction; chunk_k 2; ignore ids; both precisions), then
+    every walk call of the bench frame at 128 with gblock at both
+    precisions (counted: the launches of that run), the calls' times and
+    bounds, and the frame against the exact walk's."""
+    from raytpu_torch import Quantize, RenderConfig
+    from raytpu_torch.kernels.fused import (MXU_PRECISIONS, nearest_hit_fused,
+                                            pack_query)
+    from raytpu_torch.render.wavefront import trace_colors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("[mxu] tensor-core walk vs its plain version (matmul "
+          "allow_tf32=False), small scenes")
+    rng = np.random.default_rng(2)
+    err = {p: 0.0 for p in MXU_PRECISIONS}
+    small_ex = 0
+    for csize in MXU_SIZES:
+        scene = _small_scene(csize, dev, build_gblock=True,
+                             build_octree=False)
+        tables = (scene.clusters, scene.tri_shade)
+        o, d, itri, tmax = _small_rays(rng, 4096, scene, dev)
+        for prec in MXU_PRECISIONS:
+            for cull in (True, False, "reverse"):
+                for name, any_hit, kw in MXU_SHAPES:
+                    if cull is not True and kw:
+                        continue  # the shapes run with backface culling
+                    q = pack_query(o, d, ignore_tri=itri,
+                                   t_max=tmax if any_hit else None,
+                                   tile_size=RAYS_PER_TILE)
+                    e, _, n = compare_mxu(
+                        *tables, q, f"csize {csize} {prec} {name}", record,
+                        cull=cull, any_hit=any_hit, mxu=prec, **kw)
+                    err[prec] = max(err[prec], e)
+                    small_ex += n
+            # The phase-1 compaction: card against CPU through the entry
+            # point.
+            cpu = scene.to("cpu")
+            for any_hit in (False, True):
+                args = dict(ignore_tri=itri, t_max=tmax if any_hit else None,
+                            any_hit=any_hit, tile_size=RAYS_PER_TILE,
+                            mxu=True, mxu_precision=prec, phase1_trips=2)
+                got = nearest_hit_fused(scene, o, d, **args)
+                ref = nearest_hit_fused(cpu, o.cpu(), d.cpu(), **{
+                    k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in args.items()})
+                gh, rh = got.hit.cpu(), ref.hit
+                mis = ((gh != rh) | (gh & rh & (got.tri.cpu() != ref.tri))
+                       ).nonzero()[:, 0]
+                q = pack_query(o, d, itri, None, args["t_max"],
+                               RAYS_PER_TILE)
+                margin = near_margin(scene.clusters, q, mis.to(dev), True,
+                                     MXU_EPS, mxu=prec)
+                tie = (gh & rh)[mis] & ((got.t.cpu() - ref.t)[mis].abs()
+                                        <= MXU_EPS * ref.t[mis].abs())
+                untraced = int((~((margin.cpu() < MXU_EPS) | tie)).sum())
+                print(f"  csize {csize} {prec} phase1_trips=2 any_hit="
+                      f"{any_hit}: hits {int(gh.sum())}, card and CPU "
+                      f"differ on {mis.shape[0]} rays, untraced {untraced}")
+                if untraced:
+                    raise AssertionError("the phase-1 mxu walk on the card "
+                                         "differs from the CPU")
+
+    t0 = time.perf_counter()
+    flat = bench_scene(TRIS).flatten(cluster_size=CLUSTER_SIZE, device=dev,
+                                     build_octree=False, build_gblock=True)
+    torch.cuda.synchronize()
+    mb = flat.clusters["gblock"].numel() * 4 / 1e6
+    print(f"  bench bake with gblock ({mb:.0f} MB on the card) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = RenderConfig(width=RES, height=RES, max_reflections=0,
+                       tile_pixels=RES ** 2, quantize=Quantize.NONE)
+    rays = _frame_rays(RES, dev)
+    out = {"small_err": err, "small_exceptions": small_ex}
+    for prec in MXU_PRECISIONS:
+        query = _fused_query(mxu=True, mxu_precision=prec)
+        reset_launches()
+        img = trace_colors(flat, cfg, *rays, query=query)
+        launches = read_launches()
+        _require(launches, f"nearest_mxu_{prec}", f"any_hit_mxu_{prec}",
+                 absent=("_sub", "_prepick"))
+        _check_image(img, f"mxu {prec} frame")
+        with recording_walks() as calls:
+            trace_colors(flat, cfg, *rays, query=query)
+        rows = []
+        for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
+            e, plain_ms, n = compare_mxu(clusters, tri_shade, q,
+                                         f"bench {prec} call {i}", record,
+                                         got=got, **kw)
+            row = {"kw": kw, "err": e, "plain_ms": plain_ms, "iters":
+                   got.iters, "out": got, "q": q, "clusters": clusters,
+                   "tri_shade": tri_shade, "exceptions": n,
+                   **mxu_bound(q, got, clusters, kw)}
+            row["kernel_ms"] = _kernel_ms(row, REPS)
+            rows.append(row)
+            parts = ", ".join(f"{k} {v:.3f}"
+                              for k, v in row["bound_parts_ms"].items())
+            kind = "any-hit" if kw["any_hit"] else "nearest"
+            print(f"    call {i} ({kind}): {row['kernel_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.3f} ms by {row['bound_by']} ({parts}), "
+                  f"trips mean {float(got.iters.float().mean()):.2f}")
+        out[prec] = {"launches": launches, "rows": rows}
+    out["image"] = _mxu_image(flat, cfg, rays, img_exact, record)
+    print(card)
+    return out
+
+
+# ---- [query]: the brute, octree and tiled backends, AUTO, clearance ---------
+
+# The other backends against the walk: both are exact, but the division
+# form (brute, octree, tiled) and the walk's det-space triple product round
+# differently (the JAX package holds them to each other at rtol 1e-4 on t,
+# tests/test_accel.py), so a ray that grazes an edge may be accepted by one
+# and not the other, and an exact-t tie may go to either triangle.  Every
+# ray whose hit or triangle differs is traced to a pair within QUERY_EPS of
+# acceptance (``near_margin``) or to a tie within QUERY_EPS relative;
+# winners that agree have t within QUERY_RTOL relative, or absolute below
+# t = 1 (secondary rays that hit close to their origin cancel in t*det).
+# Through three bounces of glass the last-bit differences move the
+# secondary rays themselves, so the two frames may differ beyond 1e-4 in at
+# most a QUERY_PIXELS share of their pixels.
+QUERY_EPS = 1e-3
+QUERY_RTOL = 1e-4
+QUERY_PIXELS = 1e-4
+# Triangles of the bench terrain the octree and tiled queries run on (the
+# full frame unless printed otherwise).
+QUERY_TRIS = {"tiled": TRIS, "octree": TRIS}
+
+
+def _against_walk(flat, call, got, walk, what):
+    """One query's hits from another backend (``got``) against the walk's
+    (``walk``): returns (rays that differ, untraced, exact-t ties, t rel
+    err).  Any-hit queries compare the occlusion verdict against t_max."""
+    if call["any_hit"]:
+        tm = call["t_max"]
+        a, b = got.hit & (got.t < tm), walk.hit & (walk.t < tm)
+        differ = a != b
+        both = torch.zeros_like(differ)
+    else:
+        both = got.hit & walk.hit
+        differ = (got.hit != walk.hit) | (both & (got.tri != walk.tri))
+    rays = differ.nonzero()[:, 0]
+    margin = _trace_rays(flat, call, rays, QUERY_EPS)
+    tie = both[rays] & ((got.t[rays] - walk.t[rays]).abs()
+                        <= QUERY_EPS * walk.t[rays].abs())
+    untraced = int((~((margin < QUERY_EPS) | tie)).sum())
+    same = both & ~differ
+    t_err = float(((got.t[same] - walk.t[same]).abs()
+                   / walk.t[same].abs().clamp(min=1.0)).max()) \
+        if bool(same.any()) else 0.0
+    return int(rays.shape[0]), untraced, int(tie.sum()), t_err
+
+
+def phase_query(dev, card, flat128, rays, img128, record):
+    """[query]: the flagship at full size through AUTO (the brute-force
+    sweep) against the walk, at the 32 and 128 bakes; the bench frame's
+    queries through the tiled and octree backends against the walk's hits;
+    the bench frame with shadow clearance against the default frame."""
+    import dataclasses
+
+    from raytpu_torch import Intersector, Quantize, RenderConfig
+    from raytpu_torch.accel import traverse
+    from raytpu_torch.accel.traverse import nearest_hit, resolve_intersector
+    from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.render.wavefront import (_default_query,
+                                               block_order_perm,
+                                               render_image, trace_colors)
+
+    out = {}
+    camera = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
+    cfg = RenderConfig(width=FLAGSHIP_RES, height=FLAGSHIP_RES,
+                       max_reflections=FLAGSHIP_REFLECTIONS,
+                       tile_pixels=FLAGSHIP_RES ** 2)
+    wcfg = dataclasses.replace(cfg, intersector=Intersector.PALLAS)
+    o, d = camera_rays(camera, FLAGSHIP_RES, FLAGSHIP_RES, device=dev)
+    perm = block_order_perm(FLAGSHIP_RES, FLAGSHIP_RES,
+                            max(1, int(cfg.cull_tile ** 0.5)), dev)
+    print(f"[query] the flagship at {FLAGSHIP_RES}x{FLAGSHIP_RES}, "
+          f"{FLAGSHIP_REFLECTIONS} bounces, through AUTO against the walk")
+    for c in FLAGSHIP_SIZES:
+        flat = flagship_scene().flatten(cluster_size=c, device=dev,
+                                        build_octree=False)
+        if resolve_intersector(flat, cfg.intersector) != Intersector.BRUTE:
+            raise AssertionError("AUTO does not sweep the flagship")
+        reset_launches()
+        img = render_image(flat, cfg, camera)
+        auto_launches = read_launches()
+        if _ran(auto_launches):
+            raise AssertionError(f"AUTO launched walks: {auto_launches}")
+        # Frame times in turns (AUTO, walk, walk, AUTO).
+        ms = {"auto": [], "walk": []}
+        for k, q in (("auto", cfg), ("walk", wcfg), ("walk", wcfg),
+                     ("auto", cfg)):
+            ms[k].append(_cuda_ms(lambda: render_image(flat, q, camera), 2))
+        walk_img = render_image(flat, wcfg, camera)
+        calls = []
+        auto_q, walk_q = _default_query(cfg), _default_query(wcfg)
+        trace_colors(flat, cfg, o[perm], d[perm],
+                     query=_recording_hook(calls, auto_q))
+        n_diff = n_untraced = n_ties = 0
+        t_err = 0.0
+        for call in calls:
+            kw = {k: call[k] for k in ("ignore_tri", "ignore_mesh", "t_max",
+                                       "any_hit", "cull")}
+            walk = walk_q(flat, call["origin"], call["direction"], **kw)
+            n, u, ties, te = _against_walk(flat, call, call["hit"], walk,
+                                           f"flagship {c}")
+            n_diff, n_untraced, n_ties = n_diff + n, n_untraced + u, \
+                n_ties + ties
+            t_err = max(t_err, te)
+        delta = (img - walk_img).abs().amax(-1)
+        px = int((delta > 1e-4).sum())
+        brute_s = _once_ms(lambda: auto_q(
+            flat, calls[0]["origin"], calls[0]["direction"],
+            ignore_tri=calls[0]["ignore_tri"],
+            ignore_mesh=calls[0]["ignore_mesh"]))[1] / 1e3
+        print(f"  bake {c}: AUTO frame {statistics.mean(ms['auto']):.2f} ms "
+              f"(the sweep, no walk launched), walk frame "
+              f"{statistics.mean(ms['walk']):.2f} ms (turns AUTO "
+              f"{[round(v, 3) for v in ms['auto']]}, walk "
+              f"{[round(v, 3) for v in ms['walk']]}); the sweep's primary "
+              f"query of {calls[0]['origin'].shape[0]} rays x "
+              f"{flat.num_tris} triangles {brute_s:.3f} s; {len(calls)} "
+              f"queries, "
+              f"rays whose hit or triangle differs {n_diff} ({n_ties} exact-t "
+              f"ties, untraced {n_untraced}), t err {t_err:.2e}; pixels "
+              f"beyond 1e-4 {px} (at most {QUERY_PIXELS * delta.numel():.0f}"
+              f"), largest {float(delta.max()):.3g}")
+        if (n_untraced or t_err > QUERY_RTOL
+                or px > QUERY_PIXELS * delta.numel()):
+            raise AssertionError(f"the flagship at {c} through AUTO differs "
+                                 "from the walk beyond traced rays")
+        out[f"flagship_{c}"] = {"auto_turns_ms": ms["auto"],
+                                "walk_turns_ms": ms["walk"],
+                                "brute_primary_s": brute_s,
+                                "differ": n_diff, "ties": n_ties,
+                                "pixels": px}
+
+    # The bench frame's queries through the tiled and octree backends.
+    bcfg = RenderConfig(width=RES, height=RES, max_reflections=0,
+                        tile_pixels=RES ** 2, quantize=Quantize.NONE)
+    calls = []
+    trace_colors(flat128, bcfg, *rays,
+                 query=_recording_hook(calls, _default_query(bcfg)))
+    for backend in ("tiled", "octree"):
+        n_tris = QUERY_TRIS[backend]
+        t0 = time.perf_counter()
+        if backend == "octree" or n_tris != TRIS:
+            scene = bench_scene(n_tris).flatten(
+                cluster_size=CLUSTER_SIZE, device=dev,
+                build_octree=backend == "octree")
+        else:
+            scene = flat128
+        torch.cuda.synchronize()
+        bake_s = time.perf_counter() - t0
+        if scene is not flat128:
+            bcalls = []
+            trace_colors(scene, bcfg, *rays,
+                         query=_recording_hook(bcalls, _default_query(bcfg)))
+        else:
+            bcalls = calls
+        mode = Intersector[backend.upper()]
+        lines = []
+        for call in bcalls:
+            kw = {k: call[k] for k in ("ignore_tri", "ignore_mesh", "t_max",
+                                       "any_hit", "cull")}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = nearest_hit(scene, call["origin"], call["direction"],
+                              intersector=mode, cull_tile=RAYS_PER_TILE, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            n, u, ties, te = _against_walk(scene, call, got, call["hit"],
+                                           backend)
+            live = int(torch.isfinite(call["direction"]).all(-1).sum())
+            line = {"any_hit": call["any_hit"], "s": secs, "rays": live,
+                    "differ": n, "untraced": u, "ties": ties, "t_rel": te}
+            if backend == "octree":
+                line.update(traverse.OCTREE_STATS)
+            lines.append(line)
+            kind = "any-hit" if call["any_hit"] else "nearest"
+            print(f"  bench {backend} ({scene.num_tris} triangles, baked in "
+                  f"{bake_s:.1f} s), {kind} query of {live} live rays: "
+                  f"{secs:.3f} s"
+                  + (f" ({traverse.OCTREE_STATS['steps']} steps, "
+                     f"{traverse.OCTREE_STATS['leaf_passes']} leaf passes, "
+                     f"{traverse.OCTREE_STATS['host_reads']} host reads)"
+                     if backend == "octree" else "")
+                  + f"; against the walk: {n} rays differ ({ties} exact-t "
+                  f"ties, untraced {u}), t err {te:.2e}")
+            if u or te > QUERY_RTOL:
+                raise AssertionError(f"the {backend} query differs from the "
+                                     "walk beyond traced rays")
+        out[backend] = {"tris": scene.num_tris, "bake_s": bake_s,
+                        "queries": lines}
+
+    # Shadow clearance on the bench frame.
+    ccfg = dataclasses.replace(bcfg, shadow_clearance=True)
+    reset_launches()
+    img = trace_colors(flat128, ccfg, *rays)
+    launches = read_launches()
+    _require(launches, "nearest", "any_hit")
+    ccalls = []
+    trace_colors(flat128, ccfg, *rays,
+                 query=_recording_hook(ccalls, _default_query(ccfg)))
+    shadow = ccalls[1]
+    light = flat128.lights["position"][0]
+    shifted = int((shadow["origin"] != light).any(-1).sum())
+    differ = (img != img128).any(-1)
+    px = differ.nonzero()[:, 0]
+    margin = torch.minimum(_trace_rays(flat128, shadow, px, QUERY_EPS),
+                           _trace_rays(flat128, calls[1], px, QUERY_EPS))
+    untraced = int((~(margin < QUERY_EPS)).sum())
+    ms = [_cuda_ms(lambda: trace_colors(flat128, c, *rays), REPS)
+          for c in (bcfg, ccfg, ccfg, bcfg)]
+    print(f"  bench frame with shadow_clearance=True: {shifted} of "
+          f"{int(torch.isfinite(shadow['direction']).all(-1).sum())} lit "
+          f"shadow rays start past the light; pixels that differ from the "
+          f"default frame {int(px.shape[0])} (untraced {untraced}); frame ms "
+          f"default / clearance in turns {[round(m, 3) for m in ms]}")
+    if untraced:
+        raise AssertionError("shadow clearance changed the bench frame")
+    out["clearance"] = {"shifted": shifted, "pixels": int(px.shape[0]),
+                        "turns_ms": ms}
+    record.append({"what": "query", **out})
+    print(card)
+    return out
+
+
 def _kernel_entry(name, replaces, launches, err, rows,
                   source="raytpu_torch/kernels/csrc/walk.cu"):
     """One kernel's line: times, bound and trips summed or averaged over
@@ -2053,6 +2692,8 @@ def _kernel_entry(name, replaces, launches, err, rows,
             "plain_ms": sum(r["plain_ms"] for r in rows) / n,
             "bound_ms": sum(r["bound_ms"] for r in rows) / n,
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
+            **({"bound_unit": rows[0]["bound_unit"]}
+               if "bound_unit" in rows[0] else {}),
             "library_ms": None,
             "trips": {"mean": float(iters.mean()), "max": int(iters.max())},
             "calls": n}
@@ -2066,38 +2707,53 @@ def main():
     args = parser.parse_args()
 
     started = time.perf_counter()
+    last = [started]
+
+    def clock(phase):
+        now = time.perf_counter()
+        print(f"[clock] {phase} {now - last[0]:.0f} s, total "
+              f"{now - started:.0f} s")
+        last[0] = now
+
     card = phase_device()
     args.out.mkdir(parents=True, exist_ok=True)
     record = []
     build_s = phase_build(args.out)
+    clock("build")
     dev = torch.device("cuda")
     small_err = phase_small(dev, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("small")
     flat, cfg, rays, img, frame_rows, launches = phase_frame(dev, record)
+    clock("frame")
+    mxu = phase_mxu(dev, card, img, record)
+    clock("mxu")
+    query = phase_query(dev, card, flat, rays, img, record)
+    clock("query")
     iscene, icfg, camera, inst_rows, inst_launches, live_rays, inst_img = \
         phase_instanced(dev, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("instanced")
     sub = phase_subcluster_frames(dev, flat, cfg, rays, img, frame_rows,
                                   record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("subcluster frames")
     flagship = phase_flagship(dev, card, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("flagship")
     inst32 = phase_instanced32(dev, (iscene, icfg, camera, inst_img), record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("instanced 32")
     pcfg, pre_rows, pre_launches = phase_pretest_frame(
         flat, cfg, rays, img, frame_rows, record)
     overflow = phase_overflow(flat, cfg, rays, img, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("pretest and overflow frames")
     phase_fit(dev, card, flat, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("fit")
     phase_times(card, flat, cfg, pcfg, rays, frame_rows, pre_rows,
                 (iscene, icfg, camera, inst_rows, live_rays), overflow,
                 record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("times")
     phase_sub_times(card, flat, cfg, rays, sub, record)
-    print(f"[clock] {time.perf_counter() - started:.0f} s")
+    clock("subcluster times")
     phase_profile(card, flat, cfg, rays, (iscene, icfg, camera),
                   flagship["render"], record)
+    clock("profile")
 
     def rows_of(rows, any_hit, pretest):
         return [r for r in rows if r["kw"]["any_hit"] == any_hit
@@ -2192,6 +2848,19 @@ def main():
             "raytpu/kernels/fused.py:407-422 (_fused_kernel k_chunk)",
             sub["classic_chunk"]["launches"][f"{kind}_chunk"],
             err_of(f"{kind}_chunk", rows), rows, group))
+    # This slice's walk: the matmul pair test on the tensor cores, at each
+    # precision, from the bench frame baked with gblock.
+    for prec in ("highest", "default"):
+        for any_hit in (False, True):
+            kind = "any_hit" if any_hit else "nearest"
+            rows = [r for r in mxu[prec]["rows"]
+                    if r["kw"]["any_hit"] == any_hit]
+            kernels.append(_kernel_entry(
+                f"mxu_walk_kernel<{kind}> {prec}",
+                "raytpu/kernels/fused.py:434-476, :503-532 (_fused_kernel "
+                "mxu)", mxu[prec]["launches"][f"{kind}_mxu_{prec}"],
+                max([mxu["small_err"][prec]] + [r["err"] for r in rows]),
+                rows, "raytpu_torch/kernels/csrc/mxuwalk.cu"))
     for k in kernels:
         if not (math.isfinite(k["ms"]) and k["launches"] > 0):
             raise AssertionError(f"{k['name']}: no time or no launch")
@@ -2199,7 +2868,8 @@ def main():
         {"card": card, "build_s": build_s, "kernels": kernels,
          "flagship": {k: v for k, v in flagship.items()
                       if k not in ("rows", "render")},
-         "instanced_32": inst32["turns_ms"], "records": record},
+         "instanced_32": inst32["turns_ms"],
+         "mxu_image": mxu["image"], "query": query, "records": record},
         indent=1, default=str))
     print(f"[done] {time.perf_counter() - started:.0f} s")
     print(card)

@@ -6,9 +6,13 @@ the host-side scene bake, camera rays, one nearest-hit query per level,
 spot/directional shading with shadow queries, reflections and the image,
 and the two-level instanced render with refraction
 (``render/instanced.py``); the differentiable render and scene fits
-(``diff/``, with checkpoints in ``io/``).  The cluster walks that these
-paths run are CUDA kernels (``kernels/csrc/walk.cu``); every tensor that
-lies on the CPU goes through their plain PyTorch version instead.
+(``diff/``, with checkpoints in ``io/``); and the whole query layer
+(``accel/``): the brute-force sweep, the octree walk, the tiled query, the
+cluster walk, the JAX package's ``AUTO`` dispatch among them and shadow
+clearance.  The cluster walks are CUDA kernels (``kernels/csrc/``: the
+classic and prepick walks, the subcluster walk, and the walk whose pair
+test runs on the tensor cores, ``mxu``); every tensor that lies on the CPU
+goes through their plain PyTorch version instead.
 
 Entry points put their tensors on the card unless the caller names another
 device (``device.py``).

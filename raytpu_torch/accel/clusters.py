@@ -52,8 +52,9 @@ class ClusterTable:
     def num_clusters(self) -> int:
         return self.cluster_min.shape[0]
 
-    def as_device_arrays(self, tri_v1, tri_e1, tri_e2, tri_mesh):
-        """The walk's tables, as NumPy arrays:
+    def as_device_arrays(self, tri_v1, tri_e1, tri_e2, tri_mesh,
+                         tri_snormal, build_gblock: bool = False):
+        """The query tables, as NumPy arrays.  The walk's:
 
         - ``block`` (NCG, 24, L) f32: per block, the triangles in the
           *triple-product* form of Möller–Trumbore.  With per-ray w = d x o,
@@ -86,6 +87,22 @@ class ClusterTable:
         NCG) and ``sub_plane`` (subk, 5, NCG), sibling h of block g in
         column g.  Such a bake has no block-level ``plane``: leaf planes
         cannot be combined (raytpu/accel/clusters.py:139-301).
+
+        ``build_gblock``: also ``gblock`` (NCG, 24, 4L) f32, the matmul form
+        of the pair test (kernels/fused.py ``mxu``): rows 0-15 hold the
+        coefficients G such that ``R @ G`` with ``R = [d, w, o, 1, 0 x 6]``
+        per ray gives ``[det | udet | vdet | tdet]`` as four L-wide column
+        blocks (det: rows 0-2 = N; udet: rows 0-2 = M1n, 3-5 = -e2; vdet:
+        rows 0-2 = M2, 3-5 = e1; tdet: rows 6-8 = -N, row 9 = c0); row 16
+        holds ``[tri id | mesh id | 0 | 0]`` as int32 bits; rows 18-23 the
+        block's AABB across the lanes (raytpu/accel/clusters.py:196-225).
+
+        The tiled query's (accel/tiled.py), at leaf granularity:
+        ``cluster_min``/``cluster_max`` (NC, 3) leaf boxes, and per slot
+        ``tri_id`` and ``tri_mesh`` (int32, -1 on padding) and the
+        triangles ``tri_v1``, ``tri_e1``, ``tri_e2``, ``tri_snormal`` (zero
+        on padding).  Shadow clearance's (accel/shadowcull.py):
+        ``tri_block`` (N,) int32, the block of each original triangle.
         """
         c = self.cluster_size
         subk = SUBK.get(c, 1)
@@ -182,6 +199,18 @@ class ClusterTable:
             [nrm_pl.T, d0[None, :], eps[None, :]]).astype(np.float32)
 
         tables = {"block": block, "aabb": aabb, "root": root}
+        if build_gblock:
+            tables["gblock"] = _gblock(nrm, m1n, m2, e1h, e2h, c0, tri_id,
+                                       mesh, mn_g, mx_g, ncg, lanes)
+        tables.update(cluster_min=cmin, cluster_max=cmax, tri_id=tri_id,
+                      tri_mesh=mesh, tri_v1=v1h, tri_e1=e1h, tri_e2=e2h,
+                      tri_snormal=permh(tri_snormal))
+        n_orig = np.asarray(tri_v1).shape[0]
+        tri_block = np.zeros(n_orig, np.int32)
+        vslots = order >= 0
+        tri_block[order[vslots]] = (
+            np.arange(order.shape[0])[vslots] // lanes).astype(np.int32)
+        tables["tri_block"] = tri_block
         if subk == 1:
             tables["plane"] = plane
         else:
@@ -191,6 +220,32 @@ class ClusterTable:
             tables["sub_plane"] = np.stack([plane[:, h::subk]
                                             for h in range(subk)])
         return {k: np.ascontiguousarray(a) for k, a in tables.items()}
+
+
+def _gblock(nrm, m1n, m2, e1h, e2h, c0, tri_id, mesh, mn_g, mx_g, ncg,
+            lanes):
+    """The (NCG, 24, 4L) coefficient table of the matmul pair test
+    (``as_device_arrays``), built as the reference bake builds it."""
+    g = np.zeros((24, 4 * lanes, ncg), np.float32)
+
+    def gcol(q, rows3, vals):  # vals (T, 3) -> rows3.. of column block q
+        for k3 in range(3):
+            g[rows3 + k3, q * lanes:(q + 1) * lanes] = (
+                vals[:, k3].reshape(ncg, lanes).T)
+
+    gcol(0, 0, nrm)
+    gcol(1, 0, m1n)
+    gcol(1, 3, -e2h)
+    gcol(2, 0, m2)
+    gcol(2, 3, e1h)
+    gcol(3, 6, -nrm)
+    g[9, 3 * lanes:] = c0.reshape(ncg, lanes).T
+    g[16, :lanes] = tri_id.reshape(ncg, lanes).view(np.float32).T
+    g[16, lanes:2 * lanes] = mesh.reshape(ncg, lanes).view(np.float32).T
+    for k3 in range(3):
+        g[18 + k3] = mn_g[:, k3:k3 + 1].T
+        g[21 + k3] = mx_g[:, k3:k3 + 1].T
+    return g.transpose(2, 0, 1)
 
 
 def _median_split_leaves(centroids: np.ndarray, idx: np.ndarray,

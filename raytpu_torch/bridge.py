@@ -18,6 +18,11 @@ from raytpu_torch.scene.types import FlatScene
 TABLES = ("tri_shade", "mesh_material", "mesh_convex", "mat_reflect",
           "mat_transparent", "mat_refraction", "mat_use_texture",
           "mat_interp_normals", "mat_texture", "textures", "tex_hw")
+# Cluster tables carried across as they are: the tiled query's leaf
+# tables, shadow clearance's triangle-to-block map and, when baked, the
+# matmul pair test's coefficient table.
+CARRIED = ("cluster_min", "cluster_max", "tri_id", "tri_mesh", "tri_v1",
+           "tri_e1", "tri_e2", "tri_snormal", "tri_block", "gblock")
 META = ("num_tris", "num_meshes", "num_lights", "light_kinds",
         "has_transparent", "has_textures", "has_dual_branch")
 
@@ -38,14 +43,16 @@ def flat_scene_from_numpy(arrays: dict, meta: dict,
     """Build the port's FlatScene from the reference bake's arrays, on
     ``device`` (the card unless the caller names another).
 
-    ``arrays``: the tables named in ``TABLES``, ``lights`` (dict) and
+    ``arrays``: the tables named in ``TABLES``, ``lights`` (dict),
     ``clusters`` (dict with ``block`` (NCG, 24, L), ``aabb`` (6, 8, NC8),
     ``sub_plane`` (subk, 5, 8, NC8), ``root`` (1, 8) and, for a subcluster
     bake (cluster size 64 or 32, subk > 1), ``sub_aabb`` (subk, 6, 8,
-    NC8)).  ``meta``: the static fields named in ``META``.  The cull tables
-    are cut from the reference's padded (8, NC8) grids to (6, NCG) and
-    (5, NCG) (a 128-style bake's ``sub_plane`` becomes ``plane``), or to
-    (subk, 6, NCG) and (subk, 5, NCG)."""
+    NC8); the tables named in ``CARRIED`` ride across as they are) and,
+    optionally, ``octree`` (the reference's ``FlatOctree.as_device_arrays``
+    dict, or None).  ``meta``: the static fields named in ``META``.  The
+    cull tables are cut from the reference's padded (8, NC8) grids to
+    (6, NCG) and (5, NCG) (a 128-style bake's ``sub_plane`` becomes
+    ``plane``), or to (subk, 6, NCG) and (subk, 5, NCG)."""
     dev = resolve(device)
     cl = arrays["clusters"]
     block = np.asarray(cl["block"], np.float32)
@@ -61,7 +68,11 @@ def flat_scene_from_numpy(arrays: dict, meta: dict,
         clusters["sub_plane"] = sub_plane
     else:
         clusters["plane"] = sub_plane[0]
+    clusters.update({k: cl[k] for k in CARRIED if k in cl})
     clusters = {k: _tensor(a) for k, a in clusters.items()}
+    octree = arrays.get("octree")
+    if octree is not None:
+        octree = {k: _tensor(a) for k, a in octree.items()}
 
     tables = {k: _tensor(arrays[k]) for k in TABLES}
     # Triangle and mesh ids ride as int32 bits in block rows 16/17 and in
@@ -77,6 +88,7 @@ def flat_scene_from_numpy(arrays: dict, meta: dict,
         raise ValueError("triangle or mesh ids out of range in the bake")
     scene = FlatScene(
         clusters=clusters,
+        octree=octree,
         lights={k: _tensor(a) for k, a in arrays["lights"].items()},
         **tables,
         **{k: meta[k] for k in META},

@@ -1,5 +1,7 @@
-"""Möller–Trumbore acceptance in det-multiplied space, on tensors, and the
-guarded Möller–Trumbore recompute of the differentiable render.
+"""Möller–Trumbore acceptance in det-multiplied space, on tensors, the
+guarded Möller–Trumbore recompute of the differentiable render, and the
+division-form test, backface gate and slab test of the brute-force, octree
+and tiled queries (accel/).
 
 ``kernels/csrc/walk.cu`` carries the acceptance rule in C++ (``accept`` and
 ``accept_within``); the plain walk in ``kernels/fused.py`` calls these.
@@ -70,3 +72,51 @@ def moller_trumbore_safe(origin, direction, v1, e1, e2, eps: float = 1e-20):
     u = dot(p, t) * inv_det
     v = dot(q, direction) * inv_det
     return u, v, d
+
+
+def moller_trumbore(origin, direction, v1, e1, e2):
+    """Möller–Trumbore over broadcastable (..., 3) stacks of rays and
+    triangles (``e1 = v2 - v1``, ``e2 = v3 - v1``), exactly as
+    ``RayExtensions.IntersectsTriangle`` (RayExtensions.cs:13-39): no guard
+    on the determinant (a parallel ray divides by zero, and the inf/NaN
+    fails the acceptance), acceptance ``u >= 0 && v >= 0 && d >= 0 &&
+    u + v <= 1``.  Returns ``(hit, u, v, d)``."""
+    t = origin - v1
+    p = cross(direction, e2)
+    q = cross(t, e1)
+    det = dot(p, e1)
+    inv_det = 1.0 / det
+    d = dot(q, e2) * inv_det
+    u = dot(p, t) * inv_det
+    v = dot(q, direction) * inv_det
+    hit = (u >= 0.0) & (v >= 0.0) & (d >= 0.0) & (u + v <= 1.0)
+    return hit, u, v, d
+
+
+def facing_gate(surface_normal, direction, cull):
+    """The backface-cull gate (RayExtensions.cs:48-51) as a mask:
+    ``cull=True`` accepts triangles facing the ray, ``cull="reverse"`` those
+    that would face the reversed ray (shadow rays cast from the light)."""
+    if cull == "reverse":
+        return dot(surface_normal, direction) >= 0.0
+    return dot(surface_normal, direction) <= 0.0
+
+
+def ray_aabb(origin, direction, box_min, box_max):
+    """XNA ``BoundingBox.Intersects(ref Ray)`` slab test over (..., 3) rays
+    and boxes.  Returns ``(hit, t_near)``: ``t_near`` is 0 when the origin
+    is inside the box, else the slab entry distance.  An axis with
+    ``|d| < 1e-6`` is parallel: it misses unless the origin lies in its
+    slab, and does not constrain t."""
+    parallel = direction.abs() < 1e-6
+    inside_slab = (origin >= box_min) & (origin <= box_max)
+    inv = 1.0 / torch.where(parallel, 1.0, direction)
+    t1 = (box_min - origin) * inv
+    t2 = (box_max - origin) * inv
+    t_lo = torch.where(parallel, -float("inf"), torch.minimum(t1, t2))
+    t_hi = torch.where(parallel, float("inf"), torch.maximum(t1, t2))
+    t_near = torch.clamp(t_lo.amax(-1), min=0.0)
+    t_far = t_hi.amin(-1)
+    hit = ((t_near <= t_far) & (t_far >= 0.0)
+           & (~parallel | inside_slab).all(-1))
+    return hit, t_near

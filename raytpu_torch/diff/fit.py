@@ -120,7 +120,10 @@ def rebuild_accel(scene: FlatScene, params: Dict[str, torch.Tensor],
     ``pad_clusters_to``, a count of leaves, keeps every table's shape
     across re-bakes.  Rows whose mesh id is -1 (padding rows of a bridged
     bake) are left out, as the reference leaves out its invalid
-    triangles."""
+    triangles.  The bake's optional tables are mirrored: a bake with
+    ``gblock`` keeps it (raytpu/diff/fit.py:189-195).  The octree, if any,
+    is not rebuilt, as in the JAX package (use the cluster backends while
+    fitting)."""
     from raytpu_torch.accel.clusters import build_clusters, leaf_size
 
     with torch.no_grad():
@@ -131,7 +134,8 @@ def rebuild_accel(scene: FlatScene, params: Dict[str, torch.Tensor],
     verts = np.stack([v1, v1 + e1, v1 + e2], axis=1)
     ct = build_clusters(verts, cluster_size=leaf_size(scene.clusters),
                         valid=mesh >= 0, pad_clusters_to=pad_clusters_to)
-    tables = ct.as_device_arrays(v1, e1, e2, mesh)
+    tables = ct.as_device_arrays(v1, e1, e2, mesh, col("tri_snormal"),
+                                 build_gblock="gblock" in scene.clusters)
     return dataclasses.replace(scene, clusters={
         k: torch.from_numpy(a).to(scene.device) for k, a in tables.items()})
 

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "walk.cu", CSRC / "subwalk.cu")
+SOURCES = (CSRC / "walk.cu", CSRC / "subwalk.cu", CSRC / "mxuwalk.cu")
 HEADERS = (CSRC / "walk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytpu_torch"
 # -fmad=false: no a*b+c contracts to an FMA, so the kernels round exactly
@@ -38,6 +38,8 @@ _PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I]
 # The group walk's: rays, tile, root, aabb, block, sizes, sub_aabb,
 # sub_plane, subk.
 _GROUP = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I]
+# The tensor-core walk's: rays, tile, root, aabb, plane, gblock, sizes.
+_MXU = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
 _SIGNATURES = {
     # tri_shade, cull, pretest, recull_every, max_trips, t, code, u, v, tri,
     # rows, resolved, iters, tests, ray_tests, stream
@@ -55,6 +57,12 @@ _SIGNATURES = {
     # cull, pretest, recull_every, max_trips, chunk_k, gate, t, code,
     # resolved, iters, tests, ray_tests, stream
     "rt_subwalk_any_hit": _GROUP + [_I] * 6 + [_P] * 7,
+    # tri_shade, cull, pretest, recull_every, max_trips, chunk_k, highest,
+    # t, code, u, v, tri, rows, resolved, iters, tests, ray_tests, stream
+    "rt_mxu_nearest": _MXU + [_P] + [_I] * 6 + [_P] * 11,
+    # cull, pretest, recull_every, max_trips, chunk_k, highest, t, code,
+    # resolved, iters, tests, ray_tests, stream
+    "rt_mxu_any_hit": _MXU + [_I] * 6 + [_P] * 7,
 }
 
 _library = None

@@ -1,10 +1,10 @@
-// Shared parts of the cluster walk kernels (walk.cu, subwalk.cu): the
-// launch arguments, the entry bounds, the block-wide reductions and picks,
-// the per-ray prologue and the ray-triangle test.  Bitwise agreement with
-// the plain PyTorch walks (kernels/fused.py) rests on the same operations in
-// the same order, IEEE division, NaN-propagating min/max where PyTorch's
-// minimum/maximum propagate NaN, and building with -fmad=false so no a*b+c
-// contracts to an FMA.
+// Shared parts of the cluster walk kernels (walk.cu, subwalk.cu,
+// mxuwalk.cu): the launch arguments, the entry bounds, the block-wide
+// reductions and picks, the per-ray prologue and the ray-triangle test.
+// Bitwise agreement with the plain PyTorch walks (kernels/fused.py) rests on
+// the same operations in the same order, IEEE division, NaN-propagating
+// min/max where PyTorch's minimum/maximum propagate NaN, and building with
+// -fmad=false so no a*b+c contracts to an FMA.
 
 #pragma once
 
@@ -57,6 +57,7 @@ struct WalkArgs {
   int* out_iters;   // (R / ts,) trips per tile
   int* out_tests;   // (R / ts,) clusters tested per tile
   int* out_ray_tests;  // (R / ts,) unresolved rays per tested cluster, summed
+  int highest;  // mxu_walk_kernel only: 3xTF32 (1) or one TF32 pass (0)
 };
 
 // torch.maximum / torch.minimum: NaN in either operand propagates.

@@ -108,22 +108,26 @@ SMEM_LIMIT = 232448 - 512
 # chunk of tiles.
 _PAIR_BUDGET = 1 << 24
 _CULL_CODE = {False: 0, True: 1, "reverse": 2}
+# Precisions of the matmul pair test (``mxu_values``).
+MXU_PRECISIONS = ("highest", "default")
 # Entry of a consumed cluster: above every entry bound, FLOAT_MAX included.
 CONSUMED = float("inf")
 
 
 def kernel_name(any_hit: bool, pretest: bool = False, budget: bool = False,
                 prepick: bool = False, sub: bool = False, gate: bool = False,
-                chunk: bool = False) -> str:
+                chunk: bool = False, mxu: Optional[str] = None) -> str:
     """The ``LAUNCHES`` key of a walk kernel launch: the query kind, then
-    ``_prepick`` for the prepick walk, or ``_sub`` for the subcluster walk
+    ``_prepick`` for the prepick walk, or ``_mxu_highest``/``_mxu_default``
+    for the tensor-core walk, or ``_sub`` for the subcluster walk
     (``_gate`` with its gate on), ``_pretest`` for the pretest
     instantiation, ``_chunk`` for more than one pick per trip and
     ``_budget`` for a launch with a trip budget."""
     name = "any_hit" if any_hit else "nearest"
     if prepick:
         return name + "_prepick"
-    return (name + ("_sub" if sub else "") + ("_gate" if gate else "")
+    return (name + (f"_mxu_{mxu}" if mxu else "")
+            + ("_sub" if sub else "") + ("_gate" if gate else "")
             + ("_pretest" if pretest else "") + ("_chunk" if chunk else "")
             + ("_budget" if budget else ""))
 
@@ -137,6 +141,10 @@ LAUNCHES.update({kernel_name(a, budget=b, sub=True, gate=g, chunk=c): 0
                  for a in (False, True) for b in (False, True)
                  for g in (False, True) for c in (False, True)})
 LAUNCHES.update({kernel_name(a, prepick=True): 0 for a in (False, True)})
+LAUNCHES.update({kernel_name(a, p, b, chunk=c, mxu=m): 0
+                 for a in (False, True) for p in (False, True)
+                 for b in (False, True) for c in (False, True)
+                 for m in MXU_PRECISIONS})
 
 
 class Query(NamedTuple):
@@ -285,7 +293,8 @@ def _check_overflow(pretest, recull_every, phase1_trips, prepick, nbuf,
 def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
                       ignore_mesh=None, cull=True, tile_size: int = 256,
                       t_max=None, any_hit: bool = False, chunk_k: int = 1,
-                      mxu=None, recull_every: int = 0, pretest: bool = False,
+                      mxu=None, mxu_precision: str = "highest",
+                      recull_every: int = 0, pretest: bool = False,
                       phase1_trips: int = 0, prepick: int = 0, nbuf: int = 4,
                       layout=None, plane=None, gate: bool = False,
                       return_iters: bool = False, return_rows: bool = False):
@@ -318,8 +327,22 @@ def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
     whenever the bake has the rows; a subcluster bake has leaf planes
     only).  ``gate``: the subcluster walk skips a sibling pass whose entry
     is not below the trip's largest unresolved cap (exact either way; the
-    classic walk has no gate).  ``mxu=True`` (the reference's matmul form
-    of the pair test) raises ``NotImplementedError``.
+    classic walk has no gate).
+
+    ``mxu=True`` (raytpu/kernels/fused.py:1681-1691; None means False, as
+    in the JAX package): the classic walk with the matmul form of the pair
+    test on the ``gblock`` bake (``build_gblock=True``; ``ValueError``
+    without it): each tested block's det-space values are ``R @ G``
+    computed in TF32 on the tensor cores, ``mxu_precision`` ``"highest"``
+    (3xTF32, the counterpart of the reference's 6-pass bf16 HIGHEST) or
+    ``"default"`` (one TF32 pass, the counterpart of its one bf16 pass).
+    Neither is the exact walk bit for bit: pairs whose det-space margin is
+    within the rounding can flip, and the winner's t and (u, v) come from
+    the matmul's values (the reference kernel's in-walk extraction, not an
+    exact recompute).  It takes ``pretest``, ``recull_every``, ``chunk_k``
+    and ``phase1_trips`` (phase 2 walks ``gblock`` too); with ``layout="t"``
+    or ``prepick`` it raises ``ValueError``; on a subcluster bake it is the
+    block-granularity classic walk without planes.
 
     ``return_rows``: return ``(Hit, rows)`` with the winners' (R, 32) shade
     rows; channel 31 carries the mesh id as a float value and misses get
@@ -327,13 +350,14 @@ def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
     them from ``tri_shade`` after the walks).  Otherwise ``return_iters``:
     return ``(Hit, iters)`` with the (NT,) int32 trips per tile, summed
     over the walks of a strategy."""
-    if mxu:
-        raise NotImplementedError(
-            "mxu=True (the matmul pair test on the gblock bake) is not "
-            "ported yet: ROADMAP.md, queue 2 item 2 (walk opt-ins)")
+    mxu = bool(mxu)
     if layout not in (None, "row", "t"):
         raise ValueError(f"layout must be None, 'row' or 't', got {layout!r}")
-    classic_only = bool(pretest or recull_every or prepick)
+    if mxu and prepick:
+        raise ValueError("prepick is incompatible with mxu/pretest/"
+                         "recull_every/max_trips/chunk_k>1 (classic-walk-only "
+                         "knobs)")
+    classic_only = bool(mxu or pretest or recull_every or prepick)
     if layout == "t" and classic_only:
         raise ValueError("layout='t' is incompatible with mxu/pretest/"
                          "recull_every/prepick")
@@ -365,7 +389,8 @@ def nearest_hit_fused(scene, origin, direction, ignore_tri=None,
     if layout == "t":
         shape["gate"] = gate
     else:
-        shape.update(pretest=pretest, recull_every=recull_every)
+        shape.update(pretest=pretest, recull_every=recull_every,
+                     mxu=mxu_precision if mxu else None)
     if prepick:
         out = pick_walk(*tables, q, picks=prepick, **kind)
         unresolved = out.resolved == 0
@@ -536,7 +561,8 @@ class _Walk(NamedTuple):
     None (the slab interval alone); subk 1 is the classic walk, whose
     sibling is the block itself.  ``chunk_k``: picks per trip, already at
     most NCG.  ``gate``: skip a sibling pass whose entry is not below the
-    trip's largest unresolved cap."""
+    trip's largest unresolved cap.  ``mxu``: the matmul pair test at that
+    precision (``mxu_values``) on the ``gblock`` table, or None."""
 
     aabb: torch.Tensor
     plane: Optional[torch.Tensor]
@@ -545,6 +571,7 @@ class _Walk(NamedTuple):
     pretest: bool = False
     recull_every: int = 0
     max_trips: int = 0
+    mxu: Optional[str] = None
 
 
 def _walk_state(tl: _Tiles, itri, any_hit):
@@ -604,8 +631,8 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
     its siblings' entries) and tests them in pick order, each block's
     siblings in order ``h = 0..subk-1``, each sibling behind the gate when
     it is on; the rays then settle against the next group's first pick."""
-    block = cl["block"]
-    csize = block.shape[2]
+    block = cl["gblock"] if walk.mxu else cl["block"]
+    csize = cl["block"].shape[2]
     subk = walk.aabb.shape[0]
     csub = csize // subk
     margin = cl["root"][6]
@@ -662,7 +689,7 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
                 ray_tests[tidx] += n_unres[run]
                 _test_cluster(block, tidx, k[run], o3, d3, w3, itri, imesh,
                               tmax0, cull, any_hit, state, h * csub,
-                              (h + 1) * csub)
+                              (h + 1) * csub, mxu=walk.mxu)
                 ran |= run
             tests[idx[ran]] += 1
         nxt_v, nxt_k = _pick_group(ent, idx, walk.chunk_k)
@@ -751,17 +778,61 @@ def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
                      ray_tests)
 
 
-def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
-                  any_hit, state, lo=0, hi=None):
-    """Test the rays of tiles ``idx`` against lanes ``lo`` to ``hi - 1``
-    of blocks ``k`` (one per tile; default every lane) in lane order and
-    update the per-ray best in ``state`` in place."""
+def tf32(x):
+    """``x`` rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: half of the
+    dropped 13 bits' range is added to the magnitude bits, which are then
+    cut."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mxu_values(rmat, g, precision: str):
+    """The matmul pair test's ``R @ G`` as the tensor cores compute it:
+    ``rmat`` (..., 16) ray rows, ``g`` (..., 16, N) coefficients, both
+    float32.  ``"highest"`` splits both into TF32 hi and lo parts and sums
+    a_hi b_lo + a_lo b_hi + a_hi b_hi (3xTF32); ``"default"`` is one TF32
+    pass, a_hi b_hi.  Every product of two TF32 values is exact in float32,
+    so only the order of the float32 sums differs from the kernel's
+    (csrc/mxuwalk.cu).  On the card the products are summed by float32
+    matmuls, which needs ``torch.backends.cuda.matmul.allow_tf32 = False``
+    (PyTorch's default); it raises otherwise."""
+    if rmat.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("the plain mxu walk needs float32 matmuls: set "
+                         "torch.backends.cuda.matmul.allow_tf32 = False")
+    a_hi, b_hi = tf32(rmat), tf32(g)
+    out = a_hi @ b_hi
+    if precision == "highest":
+        a_lo, b_lo = tf32(rmat - a_hi), tf32(g - b_hi)
+        out = (a_hi @ b_lo + a_lo @ b_hi) + out
+    elif precision != "default":
+        raise ValueError(f"mxu_precision must be one of {MXU_PRECISIONS}, "
+                         f"got {precision!r}")
+    return out
+
+
+def _pair_values(block, idx, k, o3, d3, w3, lo, hi, mxu):
+    """Det-space values (m, ts, lanes) of the rays of tiles ``idx`` against
+    lanes ``lo`` to ``hi - 1`` of blocks ``k``, and the lanes' triangle and
+    mesh ids (m, 1, lanes): from the exact triple-product rows of ``block``
+    or, ``mxu`` given, from the matmul ``R @ G`` on the ``gblock`` table
+    (whole blocks), with R = [d, w, o, 1, 0 x 6] per ray."""
+    col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
+    if mxu:
+        c = block.shape[2] // 4
+        g = block[k]  # (m, 24, 4C)
+        ones = torch.ones_like(col(d3[0]))
+        rmat = torch.cat([col(a) for a in (*d3, *w3, *o3)] + [ones]
+                         + [torch.zeros_like(ones)] * 6, dim=2)
+        out = mxu_values(rmat, g[:, :16], mxu)
+        ids = g[:, 16].view(torch.int32)[:, None, :]
+        return (out[..., :c], out[..., c:2 * c], out[..., 2 * c:3 * c],
+                out[..., 3 * c:], ids[..., :c], ids[..., c:2 * c])
     ox, oy, oz = o3
     dx, dy, dz = d3
     wx, wy, wz = w3
     g = block[k, :GEO_ROWS, lo:hi]  # (m, 18, lanes)
     row = lambda i: g[:, i, None, :]  # noqa: E731  (m, 1, C)
-    col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
     rdx, rdy, rdz = col(dx), col(dy), col(dz)
     rwx, rwy, rwz = col(wx), col(wy), col(wz)
     nx, ny, nz = row(0), row(1), row(2)
@@ -771,9 +842,22 @@ def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
     vdet = (rwx * row(12) + rwy * row(13) + rwz * row(14)
             + rdx * row(9) + rdy * row(10) + rdz * row(11))
     tdet = row(15) - (col(ox) * nx + col(oy) * ny + col(oz) * nz)
-    tid = g[:, 16].view(torch.int32)[:, None, :]
-    keep = (tid != col(itri)) & (g[:, 17].view(torch.int32)[:, None, :]
-                                 != col(imesh))
+    return (det, udet, vdet, tdet, g[:, 16].view(torch.int32)[:, None, :],
+            g[:, 17].view(torch.int32)[:, None, :])
+
+
+def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
+                  any_hit, state, lo=0, hi=None, mxu=None):
+    """Test the rays of tiles ``idx`` against lanes ``lo`` to ``hi - 1``
+    of blocks ``k`` (one per tile; default every lane) in lane order and
+    update the per-ray best in ``state`` in place.  ``mxu``: ``block`` is
+    the ``gblock`` table and the det-space values come from the matmul at
+    that precision; acceptance, the strict-min update and the winner's
+    (u, v) from ``udet/det`` and ``vdet/det`` are the exact test's."""
+    col = lambda x: x[idx][:, :, None]  # noqa: E731  (m, ts, 1)
+    det, udet, vdet, tdet, tid, tmesh = _pair_values(block, idx, k, o3, d3,
+                                                     w3, lo, hi, mxu)
+    keep = (tid != col(itri)) & (tmesh != col(imesh))
     bc = state["bc"]
     if any_hit:
         ok = keep & det_space_accept_within(det, udet, vdet, tdet,
@@ -787,7 +871,8 @@ def _test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
     mint = take(dist)
     bt = state["bt"]
     upd = mint < bt[idx]
-    code = (k[:, None] * block.shape[2] + lo + lane[..., 0]).to(bc.dtype)
+    lanes = block.shape[2] // 4 if mxu else block.shape[2]
+    code = (k[:, None] * lanes + lo + lane[..., 0]).to(bc.dtype)
     bt[idx] = torch.where(upd, mint, bt[idx])
     bc[idx] = torch.where(upd, code, bc[idx])
     for name, q in (("bu", udet), ("bv", vdet), ("bd", det), ("bi", tid)):
@@ -819,7 +904,7 @@ def _over_chunks(clusters, q: Query, walk_tiles):
 
 def _walk_spec(clusters, sub: bool, plane: bool, chunk_k: int,
                gate=False, pretest=False, recull_every=0,
-               max_trips=0) -> _Walk:
+               max_trips=0, mxu=None) -> _Walk:
     """The ``_Walk`` of the classic walk (``sub`` False: the block is its
     own sibling, with its fitted plane when the bake has block planes) or
     the subcluster walk (the bake's sibling tables; a bake of one leaf per
@@ -830,23 +915,36 @@ def _walk_spec(clusters, sub: bool, plane: bool, chunk_k: int,
     else:
         aabb, planes = clusters["aabb"][None], clusters.get("plane")
         planes = None if planes is None else planes[None]
+    if mxu is not None and mxu not in MXU_PRECISIONS:
+        raise ValueError(f"mxu_precision must be one of {MXU_PRECISIONS}, "
+                         f"got {mxu!r}")
+    if mxu is not None and "gblock" not in clusters:
+        raise ValueError("mxu=True requires the gblock bake: flatten the "
+                         "scene with build_gblock=True")
     return _Walk(aabb, planes if plane else None,
                  min(chunk_k, clusters["block"].shape[0]), gate, pretest,
-                 recull_every, max_trips)
+                 recull_every, max_trips, mxu)
 
 
 def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
                pretest: bool = False, recull_every: int = 0,
                max_trips: int = 0, rows: bool = True, chunk_k: int = 1,
-               plane: bool = True):
+               plane: bool = True, mxu: Optional[str] = None):
     """The classic walk in plain PyTorch, on any device.  ``max_trips`` > 0:
     stop each tile after that many trips.  ``rows``: a nearest query also
     returns the winners' shade rows.  ``chunk_k``: picks per trip.
     ``plane``: intersect the entries with the block's fitted plane when the
-    bake has block planes (a subcluster bake has none)."""
+    bake has block planes (a subcluster bake has none).  ``mxu``
+    (``"highest"`` or ``"default"``): the matmul pair test on the
+    ``gblock`` table at that precision (``mxu_values``): the det-space
+    values of every tested pair come from ``R @ G``, and so do the
+    winner's t and (u, v) (``udet/det``, ``vdet/det``), as the JAX
+    package's kernel extracts them in the walk; acceptance and the
+    strict-min update are the exact walk's."""
     _check_walk_args(cull, recull_every, max_trips, chunk_k=chunk_k)
     spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
-                      recull_every=recull_every, max_trips=max_trips)
+                      recull_every=recull_every, max_trips=max_trips,
+                      mxu=mxu)
     return _over_chunks(clusters, q, lambda *ray: _walk_tiles(
         clusters, tri_shade, *ray, cull, any_hit, spec, rows))
 
@@ -1000,6 +1098,67 @@ def _launch(name, fn, args, dev):
     LAUNCHES[name] += 1
 
 
+def _mxu_smem_bytes(ncg: int, csize: int, chunk_k: int,
+                    precision: str) -> int:
+    """Dynamic shared memory of one tensor-core walk block: the entry
+    table, ``chunk_k`` staged blocks (the 16 coefficient rows, each padded
+    by 8 floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C
+    ids) and the group's entries and ids (csrc/mxuwalk.cu
+    ``mxu_smem_bytes``)."""
+    parts = 2 if precision == "highest" else 1
+    staged = 16 * (4 * csize + 8) * parts + 2 * csize
+    return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
+
+
+def _launch_mxu(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
+                rows):
+    """Launch ``mxu_walk_kernel`` of ``csrc/mxuwalk.cu``: the classic walk
+    (one leaf per block, the block's plane when the bake has one) with the
+    pair test on the tensor cores at ``spec.mxu`` precision."""
+    dev = q.origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_cuda(mxu=...) needs CUDA tensors, got {dev}")
+    _validate(clusters, tri_shade, q, cull, spec.recull_every,
+              spec.max_trips)
+    if spec.chunk_k > MAX_CHUNK:
+        raise ValueError(f"chunk_k {spec.chunk_k} exceeds the kernel's "
+                         f"{MAX_CHUNK} picks per trip")
+    gblock = clusters["gblock"]
+    ncg, _, csize = clusters["block"].shape
+    _check("gblock", gblock, dev, torch.float32, (ncg, 24, 4 * csize))
+    if csize % 8:
+        raise ValueError(f"the tensor-core walk tests groups of 8 "
+                         f"triangles; blocks of {csize} lanes")
+    need = _mxu_smem_bytes(ncg, csize, spec.chunk_k, spec.mxu)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{ncg} clusters of {csize} and {spec.chunk_k} picks per trip "
+            f"need {need} bytes of shared memory per block with mxu "
+            f"precision {spec.mxu!r}; the limit is {SMEM_LIMIT}")
+    r, ts = q.origin.shape[0], q.tile
+    p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    out = _outputs(r, r // ts, dev, not any_hit)
+    if rows and not any_hit:
+        out["rows"] = torch.empty((r, 32), dtype=torch.float32, device=dev)
+    head = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
+            p(q.ignore_mesh), r, ts, p(clusters["root"]), p(clusters["aabb"]),
+            p(spec.plane[0] if spec.plane is not None else None), p(gblock),
+            ncg, csize)
+    shape = (_CULL_CODE[cull], int(spec.pretest), spec.recull_every,
+             spec.max_trips, spec.chunk_k, int(spec.mxu == "highest"))
+    counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
+    if any_hit:
+        args = (*head, *shape, p(out["t"]), p(out["code"]), *counts)
+    else:
+        args = (*head, p(tri_shade), *shape, p(out["t"]), p(out["code"]),
+                p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows")),
+                *counts)
+    _launch(kernel_name(any_hit, spec.pretest, spec.max_trips > 0,
+                        chunk=spec.chunk_k > 1, mxu=spec.mxu),
+            "rt_mxu_" + ("any_hit" if any_hit else "nearest"), args, dev)
+    return WalkOut(**out)
+
+
 def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
                  rows, sub: bool):
     """Launch the classic walk (``sub`` False) or the subcluster walk:
@@ -1047,10 +1206,11 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
 def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
               pretest: bool = False, recull_every: int = 0,
               max_trips: int = 0, rows: bool = True, chunk_k: int = 1,
-              plane: bool = True):
+              plane: bool = True, mxu: Optional[str] = None):
     """Launch the classic walk of ``csrc/walk.cu`` on the current stream
     (``walk_plain``'s arguments); more than one pick per trip launches the
-    group kernel of ``csrc/subwalk.cu``.
+    group kernel of ``csrc/subwalk.cu``, and ``mxu`` the tensor-core walk
+    of ``csrc/mxuwalk.cu``.
 
     Replaces ``raytpu/kernels/fused.py``'s ``_tlane_kernel`` (nearest) and
     ``_fused_kernel`` (any-hit, and nearest with ``pretest``,
@@ -1058,7 +1218,10 @@ def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
     what bounds it on the card."""
     _check_walk_args(cull, recull_every, max_trips, chunk_k=chunk_k)
     spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
-                      recull_every=recull_every, max_trips=max_trips)
+                      recull_every=recull_every, max_trips=max_trips,
+                      mxu=mxu)
+    if mxu is not None:
+        return _launch_mxu(clusters, tri_shade, q, cull, any_hit, spec, rows)
     return _launch_walk(clusters, tri_shade, q, cull, any_hit, spec, rows,
                         sub=False)
 

@@ -13,8 +13,10 @@ vertex colours, interpolated or face normals (transformed by each
 instance's inverse-transpose), spot and directional lights, shadow rays as
 nearest-occluder queries with transparent-occluder attenuation, recursive
 reflection and Snell refraction.  Every query goes through
-``nearest_hit``'s walk defaults: the slab pretest and a re-cull every 6
-trips.
+``nearest_hit``'s dispatch (``cfg.intersector``; ``AUTO`` sweeps a bake of
+up to ``cfg.brute_force_max_tris`` triangles by brute force, as the JAX
+package does, and walks larger ones with the slab pretest and a re-cull
+every 6 trips).
 """
 
 from __future__ import annotations
@@ -84,13 +86,14 @@ def assemble_instanced(bakes, instances, lights: dict, num_lights: int,
 
 
 def flatten_instanced(scene: Scene, cluster_size: int = 128,
-                      device="cuda") -> InstancedScene:
+                      device="cuda", **flatten_kw) -> InstancedScene:
     """Bake each unique mesh set once; record per-object transforms.
 
     Objects sharing the same ``meshes`` list (by identity) share one bake,
     the memory win the reference gets from Model.Tag reuse
     (SceneObject.cs:123-134).  On the card unless ``device`` names
-    another."""
+    another; ``flatten_kw`` goes to each bake (scene/flatten.py, e.g.
+    ``build_octree=False``)."""
     dev = resolve(device)
     bakes: List[FlatScene] = []
     bake_ids = {}
@@ -102,7 +105,8 @@ def flatten_instanced(scene: Scene, cluster_size: int = 128,
             bakes.append(
                 Scene(objects=[SceneObject(meshes=obj.meshes)],
                       lights=scene.lights).flatten(
-                          cluster_size=cluster_size, device=dev))
+                          cluster_size=cluster_size, device=dev,
+                          **flatten_kw))
         instances.append(make_instance(
             bake_ids[key], np.asarray(obj.world_matrix(), np.float32)))
     lights = lights_mod.pack_lights(scene.lights, max_lights=MAX_LIGHTS)

@@ -42,6 +42,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from raytpu_torch.config import Quantize, RenderConfig, RenderMode
+from raytpu_torch.accel.shadowcull import (clearance_directional,
+                                          clearance_spot,
+                                          own_block_entry_exit)
 from raytpu_torch.accel.traverse import nearest_hit
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.core.intersect import moller_trumbore_safe
@@ -82,9 +85,6 @@ def check_supported(scene: FlatScene, cfg: RenderConfig):
     if cfg.render_mode != RenderMode.SHADED:
         raise _unported(f"render_mode={cfg.render_mode.name}",
                         "queue 1 item 4 (debug channels)")
-    if cfg.shadow_clearance:
-        raise _unported("shadow_clearance",
-                        "queue 1 item 5 (the other query backends)")
 
 
 def shade_row_views(s, mesh_as_value: bool = False):
@@ -228,19 +228,39 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
         reverse = (cfg.shadow_from_light and not scene.has_transparent
                    and i < len(scene.light_kinds)
                    and scene.light_kinds[i] == lights_mod.SPOT)
+        # Per-block shadow clearance (accel/shadowcull.py): every occluder
+        # of a fragment lies at least min(D(own block), the ray's entry of
+        # its own block) from the light, so a reversed query whose far
+        # field is provably clear starts there; a directional query stops
+        # at its own block's exit when nothing lies beyond it.  Exact, and
+        # computed on every frame.
+        use_clear = cfg.shadow_clearance and "tri_block" in scene.clusters
         # Shadow visibility is discrete: in differentiable mode the query
         # sees detached inputs (its outputs carry no gradient).
         if reverse:
+            origin_q = lt["position"][i].detach().expand_as(frag_pos)
+            dir_q = -sdir.detach()
+            tmax_q = sdist.detach()
+            if use_clear:
+                origin_q, tmax_q = _clear_spot(
+                    scene.clusters, lt["position"][i].detach(),
+                    hit_tri, origin_q, dir_q, tmax_q, lit)
             shadow = query(
-                wscene, lt["position"][i].detach().expand_as(frag_pos),
-                torch.where(lit[..., None], -sdir, _NAN).detach(),
-                ignore_tri=hit_tri, cull="reverse", t_max=sdist.detach(),
+                wscene, origin_q,
+                torch.where(lit[..., None], dir_q, _NAN),
+                ignore_tri=hit_tri, cull="reverse", t_max=tmax_q,
                 any_hit=True)
         else:
+            tmax_q = sdist.detach()
+            if use_clear and (i < len(scene.light_kinds) and
+                              scene.light_kinds[i] == lights_mod.DIRECTIONAL):
+                tmax_q = _clear_directional(
+                    scene.clusters, -lt["direction"][i].detach(), hit_tri,
+                    frag_pos.detach(), tmax_q)
             shadow = query(
                 wscene, frag_pos.detach(),
                 torch.where(lit[..., None], sdir, _NAN).detach(),
-                ignore_tri=hit_tri, cull=True, t_max=sdist.detach(),
+                ignore_tri=hit_tri, cull=True, t_max=tmax_q,
                 any_hit=not scene.has_transparent)
         obstructed = shadow.hit & (shadow.t < sdist)
         if scene.has_transparent:
@@ -254,6 +274,38 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
             light_amount = torch.where(obstructed, 1.0, 0.0)
         total = total + contrib * (1.0 - light_amount)[..., None]
     return total
+
+
+def _clear_spot(clusters, light_pos, hit_tri, origin_q, dir_q, tmax_q, lit):
+    """A reversed spot query's origin and t bound under shadow clearance
+    (raytpu/render/wavefront.py:275-303): a lit ray whose far field is
+    provably clear (its block's clearance reaches its own-block entry)
+    starts just before that entry, shaved so that float rounding never
+    moves it past an occluder; the others are left as they are.  The shift
+    is all or nothing per ray, so the rays of a block-coherent tile shift
+    together."""
+    dvals = clearance_spot(clusters, light_pos)
+    b_id, t_en, _ = own_block_entry_exit(clusters, clusters["tri_block"],
+                                         hit_tri, origin_q, dir_q)
+    t_en = torch.clamp(t_en, min=0.0)
+    clear_ray = dvals[b_id] >= t_en
+    tmin = torch.where(lit & clear_ray,
+                       torch.clamp(t_en * (1.0 - 1e-4) - 1e-4, min=0.0), 0.0)
+    return origin_q + tmin[..., None] * dir_q, tmax_q - tmin
+
+
+def _clear_directional(clusters, dl, hit_tri, frag_pos, tmax_q):
+    """A directional query's t bound under shadow clearance
+    (raytpu/render/wavefront.py:312-322): where nothing outside the
+    fragment's block lies toward the light, the search stops at the block's
+    exit."""
+    dvals = clearance_directional(clusters, dl)
+    b_id, _, t_ex = own_block_entry_exit(clusters, clusters["tri_block"],
+                                         hit_tri, frag_pos,
+                                         dl.expand_as(frag_pos))
+    own_cap = torch.clamp(t_ex, min=0.0) * (1.0 + 1e-4) + 1e-4
+    return torch.where(dvals[b_id] >= tmax_q, torch.minimum(tmax_q, own_cap),
+                       tmax_q)
 
 
 def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,

@@ -26,9 +26,19 @@ MAX_LIGHTS = 4  # light slots of the packed table, as in the reference bake
 
 
 def flatten_scene(scene: Scene, cluster_size: int = 128,
+                  build_octree: bool = True, leaf_threshold: int = 50,
+                  max_depth: int = 12, build_gblock: bool = False,
                   device="cuda") -> FlatScene:
     """Bake ``scene`` into a FlatScene on ``device`` (the card unless the
-    caller names another; with no card the default raises)."""
+    caller names another; with no card the default raises).
+
+    The bake switches are the JAX package's, with its defaults
+    (raytpu/scene/flatten.py:32-41): ``build_octree`` builds the octree of
+    the OCTREE query (accel/octree.py, ``leaf_threshold`` triangles a leaf
+    at most, ``max_depth`` levels) — host time that grows with the scene,
+    so bakes of large scenes that never take that query pass False;
+    ``build_gblock`` adds the coefficient table of the matmul pair test
+    (kernels/fused.py ``mxu``), 4x the walk's geometry table."""
     dev = resolve(device)
     tri_v = []
     tri_n = []
@@ -96,6 +106,13 @@ def flatten_scene(scene: Scene, cluster_size: int = 128,
     snormal /= np.maximum(np.linalg.norm(snormal, axis=-1, keepdims=True), 1e-30)
 
     clusters = build_clusters(v, cluster_size=cluster_size)
+    octree = None
+    if build_octree:
+        from raytpu_torch.accel.octree import build_octree as _build_octree
+
+        octree = _build_octree(v, leaf_threshold=leaf_threshold,
+                               max_depth=max_depth).as_device_arrays(
+                                   v[:, 0], e1, e2, snormal, mesh_idx)
 
     # Textures: pad to a common shape.
     tex_list = [m.texture for m in materials if m.texture is not None]
@@ -142,10 +159,13 @@ def flatten_scene(scene: Scene, cluster_size: int = 128,
     shade[:, 31] = mesh_idx.view(np.float32)
 
     t_ = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    cl = clusters.as_device_arrays(v[:, 0], e1, e2, mesh_idx)
+    cl = clusters.as_device_arrays(v[:, 0], e1, e2, mesh_idx, snormal,
+                                   build_gblock=build_gblock)
     return FlatScene(
         tri_shade=t_(shade),
         clusters={k: t_(a) for k, a in cl.items()},
+        octree=(None if octree is None
+                else {k: t_(a) for k, a in octree.items()}),
         mesh_material=t_(np.asarray(mesh_material, np.int32)),
         mesh_convex=t_(np.asarray(mesh_convex, bool)),
         mat_reflect=t_(np.asarray([m.reflectiveness for m in materials],

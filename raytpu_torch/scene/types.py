@@ -104,7 +104,9 @@ class FlatScene:
     mesh id (1, int32 bits).  ``clusters`` holds the walk's tables
     (accel/clusters.py): ``block`` (NCG, 24, C), ``aabb`` (6, NCG),
     ``root`` (8,) and ``plane`` (5, NCG) or, baked at cluster size 64 or 32,
-    ``sub_aabb`` (subk, 6, NCG) and ``sub_plane`` (subk, 5, NCG)."""
+    ``sub_aabb`` (subk, 6, NCG) and ``sub_plane`` (subk, 5, NCG); the
+    tiled query's leaf tables, ``tri_block`` and, when baked, ``gblock``.
+    ``octree``: the OCTREE query's tables (accel/octree.py) or None."""
 
     tri_shade: torch.Tensor
     clusters: dict
@@ -119,6 +121,7 @@ class FlatScene:
     textures: torch.Tensor  # (T, H, W, 3) f32 raw 0..255 byte values
     tex_hw: torch.Tensor  # (T, 2) int32 true (height, width)
     lights: dict  # packed lights (scene/lights.py::pack_lights)
+    octree: Optional[dict] = None
     num_tris: int = 0
     num_meshes: int = 0
     num_lights: int = 0

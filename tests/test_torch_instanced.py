@@ -2,11 +2,11 @@
 raytpu_torch/render/instanced.py) against the JAX package's, on the CPU.
 
 The scene is tests/test_instanced_render.py's: two instances of one sphere
-mesh (moved, scaled, rotated) over a textured plane.  The JAX package runs
-as its own tests run it on the CPU (``Intersector.AUTO``, which takes its
-exact brute-force sweep for meshes this small); the port walks its
-clusters with ``nearest_hit``'s defaults, the slab pretest and a re-cull
-every 6 trips.
+mesh (moved, scaled, rotated) over a textured plane.  Both packages run
+``Intersector.AUTO``, which takes the exact brute-force sweep for meshes
+this small; the port's cluster walk (``Intersector.PALLAS``, with
+``nearest_hit``'s defaults: the slab pretest and a re-cull every 6 trips)
+is held to the same hits in test_nearest_hit_instanced_matches_jax.
 
 Tolerances: hit, instance and triangle exact; world distances rtol 1e-5
 (the JAX package transforms rays and hit points through XLA dots, which
@@ -33,7 +33,7 @@ from raytpu.core.camera import Camera as JCamera
 from raytpu.core.camera import camera_rays as jax_camera_rays
 from raytpu.render import instanced as jrender
 from raytpu_torch.accel import instanced as pinst
-from raytpu_torch.config import RenderConfig
+from raytpu_torch.config import Intersector, RenderConfig
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.render import instanced as prender
 from raytpu_torch.render.wavefront import block_order_perm
@@ -137,6 +137,10 @@ def test_nearest_hit_instanced_matches_jax(opaque, prune, order, ignore,
         pisc.bakes, list(pisc.instances), t(o), t(d), **pkw)
     _assert_same_hits(ph, ref)
     np.testing.assert_array_equal(stats.numpy(), np.asarray(jstats))
+    walk, _ = pinst.nearest_hit_instanced(
+        pisc.bakes, list(pisc.instances), t(o), t(d),
+        intersector=Intersector.PALLAS, **pkw)
+    _assert_same_hits(walk, ref)
     if not skip_empty:
         assert stats.tolist() == [0, 0, 48]  # the plane: the down rays
 
@@ -198,13 +202,3 @@ def test_render_image_is_the_trace_in_block_order(opaque):
         pisc, dataclasses.replace(cfg, quantize=0), cam)
     assert not torch.equal(opt, img)  # FINAL rounds, NONE does not
 
-
-@pytest.mark.parametrize("change", [dict(tri_block=1024),
-                                    dict(brute_force_max_tris=0)])
-def test_unported_query_settings_raise(opaque, change):
-    """The brute-force sweep's settings reach ``nearest_hit``, which refuses
-    what the port does not have rather than ignoring it."""
-    _, pisc, _ = opaque
-    cfg = RenderConfig(width=8, height=8, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        prender.render_image_instanced(pisc, cfg, Camera(position=CAM))

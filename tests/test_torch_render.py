@@ -120,13 +120,7 @@ def test_walk_opt_ins_render_the_same_image(rendered):
 @pytest.mark.parametrize("change", [
     dict(use_multisampling=True),
     dict(render_mode=RenderMode.NORMALS),
-    dict(shadow_clearance=True),
-    dict(intersector=Intersector.BRUTE),
-    dict(intersector=Intersector.TILED),
-    dict(intersector=Intersector.OCTREE),
     dict(render_mode=RenderMode.CONVEXFLAG),
-    dict(tri_block=1024),
-    dict(brute_force_max_tris=0),
 ])
 def test_unported_config_raises(change):
     flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
@@ -135,17 +129,13 @@ def test_unported_config_raises(change):
 
 
 def test_unported_scene_and_entry_points_raise():
-    """What the renderer and the walk still refuse: ``render_image``'s
-    progress and watch options, and the reference's matmul pair test
-    (``mxu``)."""
+    """What the renderer still refuses: ``render_image``'s progress and
+    watch options."""
     flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(flat, CFG, progress=lambda done, total: None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_image(flat, CFG, watch_path="frame.png")
-    o, d = camera_rays(Camera(), 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        nearest_hit_fused(flat, o, d, mxu=True)
 
 
 @pytest.mark.parametrize("change", [dict(cull_prepick=8),

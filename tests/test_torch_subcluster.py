@@ -84,7 +84,12 @@ def test_subcluster_tables_match_the_jax_bake(scenes):
     jcl, pcl = jflat.clusters, own.clusters
     subk = 128 // csize
     ncg = pcl["block"].shape[0]
-    assert sorted(pcl) == ["aabb", "block", "root", "sub_aabb", "sub_plane"]
+    # The walk's tables and the query layer's (the tiled query's leaf
+    # tables, tri_block: test_torch_query.py); no block-level plane.
+    assert sorted(pcl) == ["aabb", "block", "cluster_max", "cluster_min",
+                           "root", "sub_aabb", "sub_plane", "tri_block",
+                           "tri_e1", "tri_e2", "tri_id", "tri_mesh",
+                           "tri_snormal", "tri_v1"]
     assert leaves_per_block(pcl) == subk and leaf_size(pcl) == csize
     np.testing.assert_array_equal(_bits(pcl["block"].numpy()),
                                   _bits(np.asarray(jcl["block"])))
@@ -223,10 +228,10 @@ def test_gate_and_chunks_change_only_the_counters():
 def test_routing_and_its_errors(monkeypatch):
     """nearest_hit_fused's routing (raytpu/kernels/fused.py:1681-1714): on
     a subcluster bake the subcluster walk, any-hit included, unless the
-    query asks for the pretest, the re-cull or the prepick walk; on other
-    bakes the classic walk unless ``layout="t"``.  ``layout="t"`` with
-    those settings and an unknown layout raise ``ValueError``; ``mxu=True``
-    raises ``NotImplementedError`` naming its ROADMAP.md item."""
+    query asks for the pretest, the re-cull, the prepick walk or ``mxu``;
+    on other bakes the classic walk unless ``layout="t"``.  ``layout="t"``
+    with those settings and an unknown layout raise ``ValueError``, and so
+    does ``mxu=True`` on a bake without ``gblock``."""
     calls = []
     for name in ("walk_plain", "subwalk_plain", "prepick_plain"):
         walk = getattr(fused, name)
@@ -235,6 +240,8 @@ def test_routing_and_its_errors(monkeypatch):
             name))
     sub = sphere_and_plane("torch").flatten(device="cpu", cluster_size=32)
     whole = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
+    sub_g = sphere_and_plane("torch").flatten(device="cpu", cluster_size=32,
+                                              build_gblock=True)
     o, d = (t(a) for a in random_rays(24, 64))
     expect = [
         (sub, {}, "subwalk_plain"), (sub, {"any_hit": True}, "subwalk_plain"),
@@ -242,6 +249,7 @@ def test_routing_and_its_errors(monkeypatch):
         (sub, {"recull_every": 2}, "walk_plain"),
         (sub, {"prepick": 64}, "prepick_plain"),
         (sub, {"layout": "row"}, "walk_plain"),
+        (sub_g, {"mxu": True}, "walk_plain"),
         (whole, {}, "walk_plain"), (whole, {"layout": "t"}, "subwalk_plain"),
         (whole, {"layout": "t", "gate": True}, "subwalk_plain")]
     base = nearest_hit_fused(sub, o, d)
@@ -249,7 +257,7 @@ def test_routing_and_its_errors(monkeypatch):
         calls.clear()
         h = nearest_hit_fused(scene, o, d, **kw)
         assert calls == [walk], (kw, calls)
-        if scene is sub and not kw.get("any_hit"):
+        if scene is not whole and not kw.get("any_hit"):
             assert torch.equal(h.hit, base.hit)
     for kw in ({"layout": "t", "pretest": True},
                {"layout": "t", "recull_every": 6},
@@ -257,7 +265,7 @@ def test_routing_and_its_errors(monkeypatch):
                {"prepick": 8, "chunk_k": 2}):
         with pytest.raises(ValueError):
             nearest_hit_fused(sub, o, d, **kw)
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+    with pytest.raises(ValueError, match="gblock"):
         nearest_hit_fused(sub, o, d, mxu=True)
 
 

@@ -138,6 +138,8 @@ def jax_arrays(jflat):
     arrays = {k: np.asarray(getattr(jflat, k)) for k in TABLES}
     arrays["lights"] = {k: np.asarray(v) for k, v in jflat.lights.items()}
     arrays["clusters"] = {k: np.array(v) for k, v in jflat.clusters.items()}
+    arrays["octree"] = (None if jflat.octree is None else
+                        {k: np.array(v) for k, v in jflat.octree.items()})
     return arrays, {k: getattr(jflat, k) for k in META}
 
 

@@ -1,5 +1,5 @@
-"""Time the bench frame and its two walk calls in several checkouts of the
-port on one card, in turns.
+"""Time the bench frame and its walk calls in several checkouts of the port
+on one card, in turns.
 
     python3 walk_ab.py TREE [TREE ...] [--out FILE]
 
@@ -7,55 +7,84 @@ Each TREE is the root of a checkout (this one is ``.``).  Every turn is a
 fresh process that imports ``raytpu_torch`` and ``chip_smoke`` from its
 tree, builds that tree's kernels, bakes bench.py's terrain and times, with
 CUDA events, the 1024x1024 frame (primary + shadow rays), each of its
-walk calls and, where the tree has it, the prepick walk (64 picks) on the
-same queries.  The trees run in the given order, then in reverse (A, B, B,
-A), so that drift of the card shows.  Prints one line per turn, the card's
-name and power limit, and writes all of it as JSON to ``--out``.
+walk calls, the prepick walk (64 picks) on the same queries, and the
+frame baked at cluster size 32 with its subcluster walk calls.  The trees
+run in the given order, then in reverse (A, B, B, A), so that drift of the
+card shows.  Prints one line per turn (with the
+registers and spill stores of each source's kernels), the card's name and
+power limit, and writes all of it as JSON to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 # Run inside each tree: only what every checkout of the port has.
 _TURN = r'''
-import json, sys, torch
+import inspect, json, re, sys, torch
 import chip_smoke as cs
 PICKS = 64
+SUB = 32  # the subcluster walk's bake (bench.py's BENCH_CSIZE)
 from raytpu_torch import Quantize, RenderConfig
 from raytpu_torch.kernels import fused
 from raytpu_torch.kernels.build import build_library
 from raytpu_torch.render.wavefront import render_rays
+from raytpu_torch.scene.flatten import flatten_scene
 
 _, _, log = build_library()
-regs = [line.split("Used ")[1].split(" registers")[0]
-        for line in log.splitlines() if "registers" in line]
-spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-             for line in log.splitlines() if "spill stores" in line)
+# Registers and spill stores per source, in the compiler's order.
+regs, spills, src = {}, {}, None
+for line in log.splitlines():
+    m = re.search(r"Compiling entry function '.*?_\d+_([a-z]+)_cu_", line)
+    if m:
+        src = m.group(1) + ".cu"
+    elif "registers" in line and src:
+        regs.setdefault(src, []).append(
+            line.split("Used ")[1].split(" registers")[0])
+    elif "spill stores" in line and src:
+        spills[src] = spills.get(src, 0) + int(
+            line.split("bytes spill stores")[0].split(",")[-1])
 dev = torch.device("cuda")
-flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=cs.CLUSTER_SIZE,
-                                       device=dev)
+# A tree whose bake builds an octree by default is told not to: the walk
+# does not read it.
+bake_kw = ({"build_octree": False} if "build_octree" in
+           inspect.signature(flatten_scene).parameters else {})
 cfg = RenderConfig(width=cs.RES, height=cs.RES, max_reflections=0,
                    tile_pixels=cs.RES ** 2, quantize=Quantize.NONE)
 o, d = cs._frame_rays(cs.RES, dev)
+
+
+def timed_walks(flat, launch):
+    with cs.recording_walks() as calls:
+        render_rays(flat, cfg, o, d)
+    return [{"any_hit": kw["any_hit"],
+             "ms": cs._cuda_ms(lambda: launch(c, s, q, **kw), 16)}
+            for c, s, q, kw, _ in calls], calls
+
+
+flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=cs.CLUSTER_SIZE,
+                                       device=dev, **bake_kw)
 frame_ms = cs._cuda_ms(lambda: render_rays(flat, cfg, o, d), 8)
-with cs.recording_walks() as calls:
-    render_rays(flat, cfg, o, d)
-walks = [{"any_hit": kw["any_hit"],
-          "ms": cs._cuda_ms(lambda: fused.walk_cuda(c, s, q, **kw), 16)}
-         for c, s, q, kw, _ in calls]
-# The prepick walk on the same queries, in a tree that has it.
+walks, calls = timed_walks(flat, fused.walk_cuda)
+# The prepick walk on the same queries.
 prepick = [{"any_hit": kw["any_hit"],
             "ms": cs._cuda_ms(lambda: fused.prepick_cuda(
                 c, s, q, cull=kw["cull"], any_hit=kw["any_hit"],
                 picks=PICKS), 16)}
-           for c, s, q, kw, _ in calls] if hasattr(fused, "prepick_cuda") \
-    else []
+           for c, s, q, kw, _ in calls]
+del flat
+# The subcluster walk: the bench frame baked at 32.
+flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=SUB, device=dev,
+                                       **bake_kw)
+sub_frame_ms = cs._cuda_ms(lambda: render_rays(flat, cfg, o, d), 8)
+sub, _ = timed_walks(flat, fused.subwalk_cuda)
 print(json.dumps({"frame_ms": frame_ms, "walks": walks, "prepick": prepick,
+                  "sub_frame_ms": sub_frame_ms, "sub": sub,
                   "registers": regs, "spill_store_bytes": spills}))
 '''
 
@@ -69,6 +98,9 @@ def _turn(tree: Path) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+SUB = 32
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", type=Path)
@@ -79,16 +111,26 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    # Each tree's first turn builds its kernels anew, so that its compiler
+    # log (registers, spills) is there to read.
+    for tree in args.trees:
+        shutil.rmtree(tree / "build" / "raytpu_torch", ignore_errors=True)
     turns = []
     for tree in args.trees + args.trees[::-1]:
         res = _turn(tree.resolve())
         turns.append({"tree": str(tree), **res})
+        kind = lambda w: "any_hit" if w["any_hit"] else "nearest"  # noqa
         print(f"{tree}: frame {res['frame_ms']:.3f} ms; walks "
-              + ", ".join(f"{'any_hit' if w['any_hit'] else 'nearest'} "
-                          f"{w['ms']:.3f} ms" for w in res["walks"])
-              + "".join(f", prepick {w['ms']:.3f} ms" for w in res["prepick"])
-              + f"; registers {'/'.join(res['registers'])}, spill stores "
-              f"{res['spill_store_bytes']} bytes", flush=True)
+              + ", ".join(f"{kind(w)} {w['ms']:.3f} ms"
+                          for w in res["walks"])
+              + "".join(f", prepick {kind(w)} {w['ms']:.3f} ms"
+                        for w in res["prepick"])
+              + f"; at {SUB}: frame {res['sub_frame_ms']:.3f} ms, subcluster "
+              + ", ".join(f"{kind(w)} {w['ms']:.3f} ms" for w in res["sub"])
+              + "".join(
+                  f"; {src} registers {'/'.join(r)} (spill stores "
+                  f"{res['spill_store_bytes'].get(src, 0)} bytes)"
+                  for src, r in res["registers"].items()), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "turns": turns},
                                    indent=1))
