@@ -27,14 +27,18 @@ Phases, each printing its lines:
    small scenes (cluster sizes 128, 32 and 16; nearest and any-hit; cull
    True, False and "reverse"; pretest and re-cull; a budget of 8 trips
    and the phase-1 compaction, card against CPU; chunk_k 2; ignore ids),
-   every exception traced to a pair within MXU_EPS; then the bench frame baked
-   with ``gblock`` through ``nearest_hit_fused(mxu=True)`` at both
-   precisions, its launch counters checked, every walk call against the
-   plain version, timed, with its bound; and the "highest" frame against
-   the exact walk's frame, every pixel that differs traced;
+   every ray whose winner differs traced to a margin below MXU_EPS or an
+   exact-t tie within MXU_RTOL, at most one in 10^4 rays; then the bench
+   frame baked with ``gblock`` through ``nearest_hit_fused(mxu=True)`` at
+   both precisions, its launch counters checked, every walk call against
+   the plain version, timed, with its bound; and the "highest" frame
+   against the exact walk's frame, every pixel that differs traced;
 4b. query: the flagship at 1024x1024 with three bounces through ``AUTO``
    (the brute-force sweep: no walk launched) against the walk at the 32
-   and 128 bakes, every query's differing rays traced; the bench frame's
+   and 128 bakes: each of AUTO's queries through the walk, its differing
+   rays traced, and the two frames slot by slot over their ray trees,
+   every pixel that differs before the framebuffer's rounding traced to a
+   query, light threshold or texel edge of its tree; the bench frame's
    queries through the tiled and octree backends against the walk's hits,
    timed (octree steps and host reads); the bench frame with
    ``shadow_clearance=True`` against the default frame;
@@ -2077,20 +2081,29 @@ def phase_instanced32(dev, inst, record):
 # differs (and, against the exact walk, the dropped a_lo*b_lo terms and the
 # rounding of the lo parts: ~3 * 2^-22 of each product).  On the bench
 # terrain a pair's terms reach ~1,100 x |det| (|d x o| ~ 45, edges ~0.057,
-# |det| ~ 0.0032), so u and v err by up to ~1e-4 (sum order) and ~8e-4
-# (3xTF32 against float32).  A pair whose det-space margin, min(|udet|,
-# |vdet|, |det - udet - vdet|, |tdet|) / |det|, or whose distance from the
-# ray's t bound, |t - t_max| / t_max, is below MXU_EPS may be accepted by one
-# and not the other; an exact-t tie within MXU_EPS relative may go to either
-# triangle.  Winners that agree: t within MXU_RTOL, u and v within MXU_EPS.
+# |det| ~ 0.0032), so u and v err by up to ~1e-3 (sum order) and ~8e-4
+# (3xTF32 against float32), t by ~4e-5 relative.  Where two walks' winners
+# differ, each is evaluated in the other's rounding (``trace_winners``):
+# the difference is traced when either winner's det-space margin, min(|u|,
+# |v|, |1 - u - v|, |t|) or |t - t_max| / t_max, is below MXU_EPS there (one
+# walk may accept it and the other not), or when the other walk accepts
+# this one's winner at a t within MXU_RTOL of its own (an exact-t tie).
+# Winners that agree: t within MXU_RTOL, u and v within MXU_EPS.  Rays
+# whose winners differ: at most MXU_SHARE of a query's live rays, rounded
+# up (the rate PERF.md predicts).
 MXU_EPS = 4e-3
-MXU_RTOL = 1e-3
+MXU_RTOL = 1e-4
+MXU_SHARE = 1e-4
 # Operations on the CUDA cores per ray-triangle pair of the tensor-core walk,
 # read off mxuwalk.cu: the acceptance (5 compares, 1 add), two id compares
 # and the best-t compare (nearest), or the t-bound product and compare
-# (any-hit).  The tensor-core work is 2 * 16 * 4C FLOP per ray and tested
-# block, x3 for "highest", at the H100's 495 TFLOP/s (TF32, dense).
+# (any-hit).  The tensor-core work: the product's nonzero multiply-adds,
+# 19 a pair (det 3, u*det and v*det 6 each, t*det 4; the kernel issues 32,
+# one k8 step a column block), 2 FLOP each, x3 for "highest", at the
+# H100's 495 TFLOP/s (TF32, dense).  The coefficients it needs are those
+# 19 floats a lane and the 2 ids.
 OPS_PAIR_MXU = {False: 9, True: 10}
+MXU_MACS = 19
 PEAK_TF32 = 495e12
 # The small comparisons: cluster sizes (32: a subcluster bake, walked at
 # block granularity) and walk shapes (kind, options).
@@ -2107,73 +2120,158 @@ MXU_SHAPES = (
 MXU_PIXEL_TOL = 1e-2
 
 
+def _det_space(o, d, rows, coef=None, mxu=None):
+    """det, u*det, v*det and t*det (n, m, L) of rays ``o``, ``d`` (n, 3)
+    against the m x L pairs of the walk's rows ``rows`` (n or 1, m, 18, L):
+    their exact float32 triple products or, with ``mxu``, that precision's
+    ``R @ G`` on the coefficients ``coef``, (16, m * 4L) for every ray or
+    (n, 16, 4L) a ray (m = 1), each block's four L-wide column blocks in
+    turn."""
+    from raytpu_torch.kernels.fused import mxu_values
+
+    col = lambda x: x[:, None, None]  # noqa: E731
+    ox, oy, oz = (col(o[:, k]) for k in range(3))
+    dx, dy, dz = (col(d[:, k]) for k in range(3))
+    wx, wy, wz = dy * oz - dz * oy, dz * ox - dx * oz, dx * oy - dy * ox
+    if mxu:
+        n = o.shape[0]
+        rmat = torch.cat([a[:, 0] for a in (dx, dy, dz, wx, wy, wz, ox, oy,
+                                            oz)]
+                         + [torch.ones_like(dx[:, 0])]
+                         + [torch.zeros_like(dx[:, 0])] * 6, dim=1)
+        vals = (mxu_values(rmat, coef, mxu) if coef.dim() == 2
+                else mxu_values(rmat[:, None], coef, mxu))
+        return vals.reshape(n, rows.shape[-3], 4, rows.shape[-1]).unbind(2)
+    row = lambda i: rows[..., i, :]  # noqa: E731
+    det = dx * row(0) + dy * row(1) + dz * row(2)
+    udet = (wx * row(6) + wy * row(7) + wz * row(8) + dx * row(3)
+            + dy * row(4) + dz * row(5))
+    vdet = (wx * row(12) + wy * row(13) + wz * row(14) + dx * row(9)
+            + dy * row(10) + dz * row(11))
+    tdet = row(15) - (ox * row(0) + oy * row(1) + oz * row(2))
+    return det, udet, vdet, tdet
+
+
+def _margins(vals, ids, q, rays, cull, eps):
+    """For pairs of rays ``rays`` (indices into the padded query ``q``)
+    with det-space values ``vals`` and triangle and mesh ids ``ids``
+    ((n or 1, m, L) each): whether each pair is within ``eps`` of
+    acceptance (u, v >= -eps, u + v <= 1 + eps, t >= -eps, t <= t_max (1 +
+    eps), the facing of ``cull``, not ignored), its margin, min(|udet|,
+    |vdet|, |det - udet - vdet|, |tdet|) / |det| or |t - t_max| / max(t_max,
+    1) when that is smaller (INF where it is not near), and its t."""
+    det, udet, vdet, tdet = vals
+    tid, mesh = ids
+    col = lambda x: x[:, None, None]  # noqa: E731
+    u, v, t = udet / det, vdet / det, tdet / det
+    tb = col(q.t_max[rays])
+    facing = (det < 0 if cull is True else det > 0 if cull == "reverse"
+              else det != 0)
+    near = ((u >= -eps) & (v >= -eps) & (u + v <= 1 + eps) & (t >= -eps)
+            & (t <= tb * (1 + eps)) & facing & (tid >= 0)
+            & (tid != col(q.ignore_tri[rays]))
+            & (mesh != col(q.ignore_mesh[rays])))
+    m = torch.stack([udet.abs(), vdet.abs(), (det - udet - vdet).abs(),
+                     tdet.abs()]).amin(0) / det.abs()
+    m = torch.minimum(m, (t - tb).abs() / tb.clamp(min=1.0))
+    return near, torch.where(near, m, float("inf")), t
+
+
 def near_margin(clusters, q, rays, cull, eps, mxu=None):
     """For rays ``rays`` (indices into the padded query ``q``): the least
-    det-space margin over the pairs that a rounding could accept (INF
-    where no pair is near), from the exact float32 triple products of
-    every block or, with ``mxu``, from that precision's ``R @ G``
-    (``mxu_values``).  A pair is near when it is within ``eps`` of
-    acceptance (u, v >= -eps, u + v <= 1 + eps, t >= -eps, t <= t_max
-    (1 + eps), the facing of ``cull``, not ignored); its margin is
-    min(|udet|, |vdet|, |det - udet - vdet|, |tdet|) / |det|, or
-    |t - t_max| / t_max when that is smaller."""
-    from raytpu_torch.kernels.fused import GEO_ROWS, mxu_values
-
-    g = clusters["block"][:, :GEO_ROWS]  # (ncg, 18, C)
-    ncg, _, c = g.shape
-    row = lambda i: g[None, :, i, :]  # noqa: E731
-    if mxu:
-        coef = clusters["gblock"][:, :16].permute(1, 0, 2).reshape(16, -1)
+    margin (``_margins``) over every pair of every block, in the exact
+    walk's rounding or, with ``mxu``, in that precision's ``R @ G``.  An
+    any-hit verdict that differs between two walks names no triangle, so it
+    is traced to the nearest pair to acceptance."""
+    g = clusters["block"]
+    ids = (g[None, :, 16].view(torch.int32), g[None, :, 17].view(torch.int32))
+    coef = (clusters["gblock"][:, :16].permute(1, 0, 2).reshape(16, -1)
+            if mxu else None)
     out = []
     for s in range(0, rays.shape[0], 8):
         idx = rays[s:s + 8]
-        o, d = q.origin[idx], q.direction[idx]
-        col = lambda x: x[:, None, None]  # noqa: E731
-        ox, oy, oz = (col(o[:, k]) for k in range(3))
-        dx, dy, dz = (col(d[:, k]) for k in range(3))
-        wx, wy, wz = dy * oz - dz * oy, dz * ox - dx * oz, dx * oy - dy * ox
-        if mxu:
-            rmat = torch.cat(
-                [a[:, 0] for a in (dx, dy, dz, wx, wy, wz, ox, oy, oz)]
-                + [torch.ones_like(dx[:, 0])]
-                + [torch.zeros_like(dx[:, 0])] * 6, dim=1)
-            vals = mxu_values(rmat, coef, mxu).reshape(-1, ncg, 4, c)
-            det, udet, vdet, tdet = vals.unbind(2)
-        else:
-            det = dx * row(0) + dy * row(1) + dz * row(2)
-            udet = (wx * row(6) + wy * row(7) + wz * row(8) + dx * row(3)
-                    + dy * row(4) + dz * row(5))
-            vdet = (wx * row(12) + wy * row(13) + wz * row(14) + dx * row(9)
-                    + dy * row(10) + dz * row(11))
-            tdet = row(15) - (ox * row(0) + oy * row(1) + oz * row(2))
-        u, v, t = udet / det, vdet / det, tdet / det
-        tb = col(q.t_max[idx])
-        tid = g[None, :, 16].view(torch.int32)
-        mesh = g[None, :, 17].view(torch.int32)
-        facing = (det < 0 if cull is True else det > 0 if cull == "reverse"
-                  else det != 0)
-        near = ((u >= -eps) & (v >= -eps) & (u + v <= 1 + eps) & (t >= -eps)
-                & (t <= tb * (1 + eps)) & facing & (tid >= 0)
-                & (tid != col(q.ignore_tri[idx]))
-                & (mesh != col(q.ignore_mesh[idx])))
-        m = torch.stack([udet.abs(), vdet.abs(), (det - udet - vdet).abs(),
-                         tdet.abs()]).amin(0) / det.abs()
-        m = torch.minimum(m, (t - tb).abs() / tb.clamp(min=1.0))
-        m = torch.where(near, m, float("inf"))
-        out.append(m.flatten(1).amin(1))
+        vals = _det_space(q.origin[idx], q.direction[idx], g[None, :, :18],
+                          coef, mxu)
+        out.append(_margins(vals, ids, q, idx, cull, eps)[1].flatten(1)
+                   .amin(1))
     return torch.cat(out) if out else torch.zeros(0, device=q.origin.device)
+
+
+def slot_margin(clusters, q, rays, codes, cull, eps, mxu=None):
+    """``_margins`` (near, margin, t: (n,) each) of one pair a ray: ray
+    ``rays[i]`` of the padded query ``q`` against the slot ``codes[i]``
+    (block * C + lane; -1: no pair, never near), in the exact walk's
+    rounding or, with ``mxu``, in that precision's ``R @ G``."""
+    g = clusters["block"]
+    c = g.shape[2]
+    code = codes.clamp(min=0).long()
+    k, lane = code // c, code % c
+    rows = g[k].gather(2, lane[:, None, None].expand(-1, g.shape[1], 1))
+    coef = None
+    if mxu:
+        cols = lane[:, None] + c * torch.arange(4, device=lane.device)
+        coef = clusters["gblock"][k, :16].gather(
+            2, cols[:, None, :].expand(-1, 16, 4))
+    vals = _det_space(q.origin[rays], q.direction[rays], rows[:, None, :18],
+                      coef, mxu)
+    ids = (rows[:, None, 16].view(torch.int32),
+           rows[:, None, 17].view(torch.int32))
+    near, m, t = (x[:, 0, 0] for x in _margins(vals, ids, q, rays, cull, eps))
+    some = codes >= 0
+    return near & some, torch.where(some, m, float("inf")), t
+
+
+def slot_of_tri(clusters, tri):
+    """The slot codes (block * C + lane) of triangle ids ``tri`` (-1 stays
+    -1) in the bake ``clusters``."""
+    ids = clusters["block"][:, 16].reshape(-1).view(torch.int32)
+    slots = torch.arange(ids.shape[0], device=ids.device, dtype=torch.int32)
+    inv = torch.full((int(ids.max()) + 1,), -1, dtype=torch.int32,
+                     device=ids.device)
+    inv[ids[ids >= 0].long()] = slots[ids >= 0]
+    return torch.where(tri >= 0, inv[tri.clamp(min=0).long()], -1)
+
+
+def trace_winners(clusters, rays, got, ref, cull, eps, rtol, mxu_got=None,
+                  mxu_ref=None):
+    """Rays ``rays`` on which two nearest walks' winners differ, traced.
+    ``got`` and ``ref`` are (padded query, slot codes, t) of each walk,
+    whose rounding is ``mxu_got`` and ``mxu_ref`` (None: the exact
+    walk's).  A ray is traced where ``got``'s winner, evaluated on ``ref``'s
+    ray in ``ref``'s rounding, or ``ref``'s winner on ``got``'s ray in
+    ``got``'s rounding, has a margin below ``eps`` (the walk that passed it
+    over may have rejected it), or where ``ref``'s rounding accepts
+    ``got``'s winner at a t within ``rtol`` of its own winner's (an exact-t
+    tie).  Returns (traced, tie and not near a margin, margin)."""
+    (qg, cg, _), (qr, cr, tr) = got, ref
+    near_k, m_k, t_k = slot_margin(clusters, qr, rays, cg[rays], cull, eps,
+                                   mxu_ref)
+    _, m_p, _ = slot_margin(clusters, qg, rays, cr[rays], cull, eps, mxu_got)
+    margin = torch.minimum(m_k, m_p)
+    t0 = tr[rays]
+    tie = near_k & (cr[rays] >= 0) & ((t_k - t0).abs() <= rtol * t0.abs())
+    traced = (margin < eps) | tie
+    return traced, tie & ~(margin < eps), margin
+
+
+def _allowed(q):
+    """Rays of the padded query ``q`` whose winners may differ between two
+    walks: MXU_SHARE of its live rays, rounded up."""
+    live = int(torch.isfinite(q.direction).all(-1).sum())
+    return math.ceil(MXU_SHARE * live)
 
 
 def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
     """The tensor-core walk (``got``, or a fresh launch) against its plain
     version on the same padded query: hits and winning slots equal except
-    on rays traced to a pair within MXU_EPS (``near_margin``) or, nearest,
-    an exact-t tie within MXU_EPS; winners that agree within MXU_RTOL (t)
-    and MXU_EPS (u, v); the counters and resolved flags equal where no ray
-    is an exception.  Returns (max abs difference, plain ms, exceptions)."""
+    on rays traced (``trace_winners`` in the plain version's rounding, or
+    for any-hit verdicts ``near_margin``), at most ``_allowed`` of them;
+    winners that agree within MXU_RTOL (t) and MXU_EPS (u, v); the
+    counters and resolved flags equal where no ray is an exception.
+    Returns (max abs difference, plain ms, exceptions)."""
     from raytpu_torch.kernels.fused import walk_cuda, walk_plain
 
-    any_hit = walk["any_hit"]
+    any_hit, cull, prec = walk["any_hit"], walk["cull"], walk["mxu"]
     if got is None:
         got = walk_cuda(clusters, tri_shade, q, **walk)
     ref, plain_ms = _once_ms(lambda: walk_plain(clusters, tri_shade, q,
@@ -2184,13 +2282,13 @@ def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
     if not any_hit:
         differ |= both & (got.code != ref.code)
     ex = differ.nonzero()[:, 0]
-    margin = near_margin(clusters, q, ex, walk["cull"], MXU_EPS,
-                         mxu=walk["mxu"])
-    traced = margin < MXU_EPS
-    if not any_hit:
-        tie = both[ex] & ((got.t[ex] - ref.t[ex]).abs()
-                          <= MXU_EPS * ref.t[ex].abs())
-        traced |= tie
+    if any_hit:
+        margin = near_margin(clusters, q, ex, cull, MXU_EPS, mxu=prec)
+        traced, ties = margin < MXU_EPS, torch.zeros_like(ex, dtype=bool)
+    else:
+        traced, ties, margin = trace_winners(
+            clusters, ex, (q, got.code, got.t), (q, ref.code, ref.t), cull,
+            MXU_EPS, MXU_RTOL, prec, prec)
     same = both & ~differ
     t_err = u_err = abs_err = 0.0
     if not any_hit and bool(same.any()):
@@ -2201,21 +2299,23 @@ def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
         abs_err = max(float(dt.max()), u_err)
     counters = all(torch.equal(getattr(got, f), getattr(ref, f))
                    for f in ("iters", "tests", "ray_tests", "resolved"))
-    n_ex, untraced = int(ex.shape[0]), int((~traced).sum())
-    worst = float(margin[traced & torch.isfinite(margin)].max()) \
-        if bool((traced & torch.isfinite(margin)).any()) else 0.0
+    n_ex, untraced, allowed = int(ex.shape[0]), int((~traced).sum()), \
+        _allowed(q)
+    fin = traced & torch.isfinite(margin)
+    worst = float(margin[fin].max()) if bool(fin.any()) else 0.0
     rec = {"what": what, "walk": {k: str(v) for k, v in walk.items()},
            "rays": int(q.origin.shape[0]), "hits": int(hk.sum()),
-           "exceptions": n_ex, "untraced": untraced,
-           "largest_traced_margin": worst, "t_rel_err": t_err,
-           "uv_abs_err": u_err, "counters_equal": counters,
-           "plain_ms": plain_ms}
+           "exceptions": n_ex, "allowed": allowed, "ties": int(ties.sum()),
+           "untraced": untraced, "largest_traced_margin": worst,
+           "t_rel_err": t_err, "uv_abs_err": u_err,
+           "counters_equal": counters, "plain_ms": plain_ms}
     record.append(rec)
     print(f"  {what}: {walk} rays={q.origin.shape[0]} hits {int(hk.sum())}/"
-          f"{int(hp.sum())}, exceptions {n_ex} (untraced {untraced}, largest "
+          f"{int(hp.sum())}, exceptions {n_ex} of at most {allowed} "
+          f"(exact-t ties {int(ties.sum())}, untraced {untraced}, largest "
           f"margin {worst:.2e}), t rel {t_err:.2e}, u/v abs {u_err:.2e}, "
           f"counters equal {counters}, plain walk {plain_ms:.0f} ms")
-    if untraced or t_err > MXU_RTOL or u_err > MXU_EPS or (
+    if untraced or n_ex > allowed or t_err > MXU_RTOL or u_err > MXU_EPS or (
             n_ex == 0 and not counters):
         raise AssertionError(f"the tensor-core walk and its plain version "
                              f"disagree on {what}")
@@ -2224,19 +2324,19 @@ def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
 
 def mxu_bound(q, out, clusters, walk):
     """The least time the card could take for one tensor-core walk call:
-    the largest of the tensor-core work (ray tests x 2 * 16 * 4C FLOP, x3
-    for "highest", at 495 TFLOP/s), the CUDA-core work (ray tests x C pairs
-    x OPS_PAIR_MXU) and the bytes (each input read once: the rays, the 16
-    coefficient rows and the id row of every block, the cull tables; each
-    output written once)."""
+    the largest of the tensor-core work (ray tests x 2 * MXU_MACS * C FLOP,
+    x3 for "highest", at 495 TFLOP/s), the CUDA-core work (ray tests x C
+    pairs x OPS_PAIR_MXU) and the bytes (each input read once: the rays,
+    the MXU_MACS nonzero coefficients and the 2 ids of every lane, the cull
+    tables; each output written once)."""
     any_hit = walk["any_hit"]
     ncg, _, csize = clusters["block"].shape
     r, nt = q.origin.shape[0], q.origin.shape[0] // q.tile
     tests = float(out.ray_tests.double().sum())
     passes = 3 if walk["mxu"] == "highest" else 1
-    tc = tests * 2 * 16 * 4 * csize * passes
+    tc = tests * 2 * MXU_MACS * csize * passes
     cuda = tests * csize * OPS_PAIR_MXU[any_hit]
-    nbytes = (r * 36 + ncg * (11 + 66 * csize) * 4 + 32 + nt * 12
+    nbytes = (r * 36 + ncg * (11 + (MXU_MACS + 2) * csize) * 4 + 32 + nt * 12
               + r * (12 if any_hit else 24))
     if walk.get("rows", True) and not any_hit:
         nbytes += r * 128 + int((out.code >= 0).sum()) * 128
@@ -2283,19 +2383,41 @@ def _recording_hook(calls, base):
     return query
 
 
-def _trace_rays(flat, call, rays, eps, mxu=None):
-    """``near_margin`` of rays ``rays`` of a recorded render query."""
+def _call_query(call):
+    """The padded query of a recorded render query."""
     from raytpu_torch.kernels.fused import pack_query
 
-    q = pack_query(call["origin"], call["direction"], call["ignore_tri"],
-                   call["ignore_mesh"], call["t_max"], RAYS_PER_TILE)
-    return near_margin(flat.clusters, q, rays, call["cull"], eps, mxu)
+    return pack_query(call["origin"], call["direction"], call["ignore_tri"],
+                      call["ignore_mesh"], call["t_max"], RAYS_PER_TILE)
+
+
+def _trace_calls(flat, got, ref, rays, eps, rtol, mxu_got=None,
+                 mxu_ref=None):
+    """``trace_winners`` of rays ``rays`` of two recorded nearest render
+    queries (``got`` and ``ref``, in the roundings ``mxu_got`` and
+    ``mxu_ref``), or for any-hit queries the least ``near_margin`` on
+    either query's ray below ``eps``.  Returns (traced, tie only,
+    margin)."""
+    cl = flat.clusters
+    qg, qr = _call_query(got), _call_query(ref)
+    if ref["any_hit"]:
+        margin = torch.minimum(
+            near_margin(cl, qg, rays, got["cull"], eps, mxu_got),
+            near_margin(cl, qr, rays, ref["cull"], eps, mxu_ref))
+        return margin < eps, torch.zeros_like(rays, dtype=bool), margin
+    hg, hr = got["hit"], ref["hit"]
+    return trace_winners(cl, rays, (qg, slot_of_tri(cl, hg.tri), hg.t),
+                         (qr, slot_of_tri(cl, hr.tri), hr.t), ref["cull"],
+                         eps, rtol, mxu_got, mxu_ref)
 
 
 def _mxu_image(flat, cfg, rays, img_exact, record):
     """The bench frame with mxu="highest" against the exact walk's frame:
-    every pixel that differs by another primary triangle, another shadow
-    verdict or more than MXU_PIXEL_TOL traced to a pair within MXU_EPS."""
+    every pixel whose primary triangle or shadow verdict differs traced
+    (``_trace_calls``), at most ``_allowed`` of them; every pixel whose
+    colour differs by more than MXU_PIXEL_TOL traced to a margin, not to
+    an exact-t tie alone (a tie on the smooth-shaded terrain is the same
+    point and nearly the same normal)."""
     from raytpu_torch.render.wavefront import trace_colors
 
     o, d = rays
@@ -2312,39 +2434,48 @@ def _mxu_image(flat, cfg, rays, img_exact, record):
     d_tri = (he.hit != hm.hit) | (he.hit & hm.hit & (he.tri != hm.tri))
     d_sh = ~d_tri & (se["hit"].hit != sm["hit"].hit)
     delta = (img_e - img_m).abs().amax(-1)
-    d_col = ~d_tri & ~d_sh & (delta > MXU_PIXEL_TOL)
     px_tri, px_sh = d_tri.nonzero()[:, 0], d_sh.nonzero()[:, 0]
-    # Near in the exact walk's rounding or in the matmul's.
-    m_tri = torch.minimum(_trace_rays(flat, pe, px_tri, MXU_EPS),
-                          _trace_rays(flat, pm, px_tri, MXU_EPS, "highest"))
-    tie = he.hit[px_tri] & hm.hit[px_tri] & (
-        (he.t[px_tri] - hm.t[px_tri]).abs() <= MXU_EPS * he.t[px_tri])
-    m_sh = torch.minimum(_trace_rays(flat, se, px_sh, MXU_EPS),
-                         _trace_rays(flat, sm, px_sh, MXU_EPS, "highest"))
-    ok_tri, ok_sh = (m_tri < MXU_EPS) | tie, m_sh < MXU_EPS
+    ok_tri, tie, m_tri = _trace_calls(flat, pm, pe, px_tri, MXU_EPS,
+                                      MXU_RTOL, "highest")
+    ok_sh, _, m_sh = _trace_calls(flat, sm, se, px_sh, MXU_EPS, MXU_RTOL,
+                                  "highest")
+    # Pixels whose colour may change: a traced primary difference that is
+    # not a tie alone, or a traced shadow verdict.
+    free = torch.zeros_like(d_tri)
+    free[px_tri[ok_tri & ~tie]] = True
+    free[px_sh[ok_sh]] = True
+    d_col = ~free & (delta > MXU_PIXEL_TOL)
     untraced = int((~ok_tri).sum() + (~ok_sh).sum() + d_col.sum())
+    n_ex = int(px_tri.shape[0] + px_sh.shape[0])
+    allowed = _allowed(_call_query(pe))
     traced = torch.cat([m_tri[ok_tri & (m_tri < MXU_EPS)], m_sh[ok_sh]])
     differ = int((delta > 0).sum())
+    tie_px = px_tri[tie]
+    tie_delta = float(delta[tie_px].max()) if tie_px.numel() else 0.0
     print(f"  bench frame, mxu='highest' against the exact walk: pixels "
           f"that differ at all {differ} (largest {float(delta.max()):.3g}); "
-          f"another primary triangle {px_tri.shape[0]} ({int(tie.sum())} "
-          f"exact-t ties), another shadow verdict {px_sh.shape[0]}, colour "
-          f"beyond {MXU_PIXEL_TOL} otherwise {int(d_col.sum())}; untraced "
-          f"{untraced}; largest traced margin "
+          f"another primary triangle {px_tri.shape[0]} ({tie_px.shape[0]} "
+          f"exact-t ties alone, their colour within {tie_delta:.3g}), "
+          f"another shadow verdict {px_sh.shape[0]} (at most {allowed} in "
+          f"all); colour beyond {MXU_PIXEL_TOL} otherwise "
+          f"{int(d_col.sum())}; untraced {untraced}; largest traced margin "
           f"{float(traced.max()) if traced.numel() else 0.0:.2e}")
-    for kind, px, m in (("primary", px_tri, m_tri), ("shadow", px_sh, m_sh)):
+    for kind, px, m, ok in (("primary", px_tri, m_tri, ok_tri),
+                            ("shadow", px_sh, m_sh, ok_sh)):
         for i in range(min(8, px.shape[0])):
             print(f"    pixel {int(px[i])}: {kind} differs, margin "
-                  f"{float(m[i]):.3e}")
+                  f"{float(m[i]):.3e}, traced {bool(ok[i])}, colour "
+                  f"{float(delta[px[i]]):.3g}")
     record.append({"what": "mxu frame vs exact", "pixels_differ": differ,
-                   "primary": int(px_tri.shape[0]), "shadow":
-                   int(px_sh.shape[0]), "colour": int(d_col.sum()),
-                   "untraced": untraced})
-    if untraced:
+                   "primary": int(px_tri.shape[0]),
+                   "ties": int(tie_px.shape[0]), "tie_colour": tie_delta,
+                   "shadow": int(px_sh.shape[0]), "allowed": allowed,
+                   "colour": int(d_col.sum()), "untraced": untraced})
+    if untraced or n_ex > allowed:
         raise AssertionError("the mxu frame differs from the exact frame in "
-                             "pixels no near pair explains")
+                             "pixels no near pair or tie explains")
     return {"pixels_differ": differ, "primary": int(px_tri.shape[0]),
-            "shadow": int(px_sh.shape[0])}
+            "ties": int(tie_px.shape[0]), "shadow": int(px_sh.shape[0])}
 
 
 def phase_mxu(dev, card, img_exact, record):
@@ -2396,20 +2527,27 @@ def phase_mxu(dev, card, img_exact, record):
                 ref = nearest_hit_fused(cpu, o.cpu(), d.cpu(), **{
                     k: v.cpu() if torch.is_tensor(v) else v
                     for k, v in args.items()})
-                gh, rh = got.hit.cpu(), ref.hit
-                mis = ((gh != rh) | (gh & rh & (got.tri.cpu() != ref.tri))
-                       ).nonzero()[:, 0]
+                gh, rh = got.hit, ref.hit.to(dev)
+                gt, rt = got.tri, ref.tri.to(dev)
                 q = pack_query(o, d, itri, None, args["t_max"],
                                RAYS_PER_TILE)
-                margin = near_margin(scene.clusters, q, mis.to(dev), True,
-                                     MXU_EPS, mxu=prec)
-                tie = (gh & rh)[mis] & ((got.t.cpu() - ref.t)[mis].abs()
-                                        <= MXU_EPS * ref.t[mis].abs())
-                untraced = int((~((margin.cpu() < MXU_EPS) | tie)).sum())
+                if any_hit:
+                    mis = (gh != rh).nonzero()[:, 0]
+                    traced = near_margin(scene.clusters, q, mis, True,
+                                         MXU_EPS, mxu=prec) < MXU_EPS
+                else:
+                    mis = ((gh != rh) | (gh & rh & (gt != rt))).nonzero()[:, 0]
+                    traced = trace_winners(
+                        scene.clusters, mis,
+                        (q, slot_of_tri(scene.clusters, gt), got.t),
+                        (q, slot_of_tri(scene.clusters, rt), ref.t.to(dev)),
+                        True, MXU_EPS, MXU_RTOL, prec, prec)[0]
+                untraced = int((~traced).sum())
                 print(f"  csize {csize} {prec} phase1_trips=2 any_hit="
                       f"{any_hit}: hits {int(gh.sum())}, card and CPU "
-                      f"differ on {mis.shape[0]} rays, untraced {untraced}")
-                if untraced:
+                      f"differ on {mis.shape[0]} rays (at most "
+                      f"{_allowed(q)}), untraced {untraced}")
+                if untraced or mis.shape[0] > _allowed(q):
                     raise AssertionError("the phase-1 mxu walk on the card "
                                          "differs from the CPU")
 
@@ -2464,43 +2602,302 @@ def phase_mxu(dev, card, img_exact, record):
 # differently (the JAX package holds them to each other at rtol 1e-4 on t,
 # tests/test_accel.py), so a ray that grazes an edge may be accepted by one
 # and not the other, and an exact-t tie may go to either triangle.  Every
-# ray whose hit or triangle differs is traced to a pair within QUERY_EPS of
-# acceptance (``near_margin``) or to a tie within QUERY_EPS relative;
-# winners that agree have t within QUERY_RTOL relative, or absolute below
-# t = 1 (secondary rays that hit close to their origin cancel in t*det).
-# Through three bounces of glass the last-bit differences move the
-# secondary rays themselves, so the two frames may differ beyond 1e-4 in at
-# most a QUERY_PIXELS share of their pixels.
+# ray whose hit or triangle differs is traced (``trace_winners``, margins
+# below QUERY_EPS, ties within QUERY_RTOL); winners that agree have t
+# within QUERY_RTOL relative, or absolute below t = 1 (secondary rays that
+# hit close to their origin cancel in t*det).  Two frames through different
+# backends are compared slot by slot at every level of the wavefront
+# (``_trace_frames``), and every pixel that differs beyond QUERY_PIXEL_TOL
+# is traced to a difference in the queries of its ray tree.
 QUERY_EPS = 1e-3
 QUERY_RTOL = 1e-4
-QUERY_PIXELS = 1e-4
+QUERY_PIXEL_TOL = 1e-4
+# Point-filtered textures pick a texel by truncating the texture
+# coordinate: a hit on the same triangle may take the neighbouring texel
+# where the two frames' coordinates lie within TEXEL_EPS texels of each
+# other on either side of a texel edge (u, v differ by ~1e-5 between the
+# division form and the triple product; times the texture's 127 texels and
+# the uv scale, ~1e-3 texel).
+TEXEL_EPS = 1e-2
 # Triangles of the bench terrain the octree and tiled queries run on (the
 # full frame unless printed otherwise).
 QUERY_TRIS = {"tiled": TRIS, "octree": TRIS}
 
 
-def _against_walk(flat, call, got, walk, what):
+def _against_walk(flat, call, got, walk):
     """One query's hits from another backend (``got``) against the walk's
-    (``walk``): returns (rays that differ, untraced, exact-t ties, t rel
-    err).  Any-hit queries compare the occlusion verdict against t_max."""
+    (``walk``) on the recorded query ``call``: returns (rays that differ,
+    untraced, exact-t ties, t rel err).  Any-hit queries compare the
+    occlusion verdict against t_max."""
     if call["any_hit"]:
         tm = call["t_max"]
-        a, b = got.hit & (got.t < tm), walk.hit & (walk.t < tm)
-        differ = a != b
+        differ = (got.hit & (got.t < tm)) != (walk.hit & (walk.t < tm))
         both = torch.zeros_like(differ)
     else:
         both = got.hit & walk.hit
         differ = (got.hit != walk.hit) | (both & (got.tri != walk.tri))
     rays = differ.nonzero()[:, 0]
-    margin = _trace_rays(flat, call, rays, QUERY_EPS)
-    tie = both[rays] & ((got.t[rays] - walk.t[rays]).abs()
-                        <= QUERY_EPS * walk.t[rays].abs())
-    untraced = int((~((margin < QUERY_EPS) | tie)).sum())
+    traced, tie, _ = _trace_calls(flat, dict(call, hit=got),
+                                  dict(call, hit=walk), rays, QUERY_EPS,
+                                  QUERY_RTOL)
     same = both & ~differ
     t_err = float(((got.t[same] - walk.t[same]).abs()
                    / walk.t[same].abs().clamp(min=1.0)).max()) \
         if bool(same.any()) else 0.0
-    return int(rays.shape[0]), untraced, int(tie.sum()), t_err
+    return int(rays.shape[0]), int((~traced).sum()), int(tie.sum()), t_err
+
+
+def _record_frame(flat, cfg, o, d, base):
+    """``trace_colors`` of primary rays ``o``, ``d`` through the query
+    ``base``: the colours, every query (``_recording_hook``) and the
+    wavefront's live-first orders, one a level after the first (its own
+    compaction of the uncompacted [reflection | refraction] children).
+    Each shadow query carries ``edge``, its fragments' distance from the
+    light's threshold: min(|n . l|, |cos - cutoff|) of a spot light (its
+    horizon and cone edge), |n . l| of a directional one.  Each level's
+    nearest query of a point-filtered textured scene carries ``texel``:
+    its hits' texture coordinates in texels before and after addressing,
+    and whether the material samples its texture."""
+    from raytpu_torch.config import TextureFiltering
+    from raytpu_torch.core.math3d import dot, normalize
+    from raytpu_torch.kernels import fused
+    from raytpu_torch.render import wavefront
+    from raytpu_torch.scene import lights, texture
+
+    calls, orders, edges, texels, inside = [], [], [], [], [False]
+    compact, light_contrib = fused.compact_order, lights.light_contrib
+    surface_color = wavefront._surface_color
+
+    def contrib_of(lt, i, frag_pos, normal):
+        to = normalize(lt["position"][i] - frag_pos)
+        spot = torch.minimum(
+            dot(to, normal).abs(),
+            (dot(-to, lt["direction"][i]) - lt["angle_cosine"][i]).abs())
+        edges.append(torch.where(lt["type"][i] == lights.SPOT, spot,
+                                 dot(lt["direction"][i], normal).abs()))
+        return light_contrib(lt, i, frag_pos, normal)
+
+    def surface_of(scene, cfg_, td, mat, u, v):
+        if scene.has_textures and cfg_.filtering == TextureFiltering.POINT:
+            uv = (td["uv1"] + (td["uv2"] - td["uv1"]) * u[..., None]
+                  + (td["uv3"] - td["uv1"]) * v[..., None])
+            tex_id = torch.clamp(scene.mat_texture[mat], min=0)
+            size = (scene.tex_hw[tex_id].flip(-1) - 1).to(torch.float32)
+            texels.append({
+                "coord": texture.address_uv(uv, cfg_.address_mode) * size,
+                "raw": uv * size,
+                "use": scene.mat_use_texture[mat]
+                & (scene.mat_texture[mat] >= 0)})
+        return surface_color(scene, cfg_, td, mat, u, v)
+
+    def order_of(dead):
+        order = compact(dead)
+        if not inside[0]:  # not the queries' own phase-1 compaction
+            orders.append(order)
+        return order
+
+    def query(scene, origin, direction, **kw):
+        inside[0] = True
+        try:
+            return base(scene, origin, direction, **kw)
+        finally:
+            inside[0] = False
+
+    fused.compact_order, lights.light_contrib = order_of, contrib_of
+    wavefront._surface_color = surface_of
+    try:
+        colors = wavefront.trace_colors(flat, cfg, o, d,
+                                        query=_recording_hook(calls, query))
+    finally:
+        fused.compact_order, lights.light_contrib = compact, light_contrib
+        wavefront._surface_color = surface_color
+    per = 1 + flat.num_lights
+    shadows = [c for i, c in enumerate(calls) if i % per]
+    nearest = [c for i, c in enumerate(calls) if not i % per]
+    if len(shadows) != len(edges) or len(texels) not in (0, len(nearest)):
+        raise AssertionError(f"{len(edges)} light and {len(texels)} surface "
+                             f"evaluations for {len(calls)} queries")
+    for call, edge in zip(shadows, edges):
+        call["edge"] = edge
+    for call, texel in zip(nearest, texels):
+        call["texel"] = texel
+    return colors, calls, orders
+
+
+def _tree_slots(calls, orders, r0, per):
+    """The recorded queries by wavefront level (``per`` a level: its
+    nearest query, then one shadow query a light), and for each level the
+    position in the frame's query of every slot of the uncompacted ray tree
+    (slot c of level L >= 1 is child c // R of slot c % R of level L - 1, R
+    its ray count; c % r0 is its pixel)."""
+    levels = [calls[i:i + per] for i in range(0, len(calls), per)]
+    dev = calls[0]["origin"].device
+    tree = torch.arange(r0, device=dev)  # the tree slot of each position
+    pos = [tree]
+    dual = 0
+    for lv in levels[1:]:
+        r, prev = lv[0]["origin"].shape[0], tree.shape[0]
+        if r == prev:  # the children keep their parents' slots
+            pos.append(pos[-1])
+            continue
+        order = orders[dual] if orders else torch.arange(r, device=dev)
+        dual += 1
+        tree = (order // prev) * prev + tree[order % prev]
+        inv = torch.empty_like(tree)
+        inv[tree] = torch.arange(r, device=dev)
+        pos.append(inv)
+    if dual != len(orders) and orders:
+        raise AssertionError(f"{len(orders)} compactions for {dual} levels")
+    return levels, pos
+
+
+def _tree_call(call, at):
+    """A recorded query with every per-ray array in tree-slot order
+    (``at``: each slot's position)."""
+    take = lambda x: None if x is None else x[at]  # noqa: E731
+    hit = call["hit"]
+    return dict(call, origin=call["origin"][at],
+                direction=call["direction"][at],
+                ignore_tri=take(call["ignore_tri"]),
+                ignore_mesh=take(call["ignore_mesh"]),
+                t_max=take(call["t_max"]), edge=take(call.get("edge")),
+                texel={k: x[at] for k, x in call.get("texel", {}).items()},
+                hit=type(hit)(*(x[at] for x in hit)))
+
+
+def _print_tree(flat, a, b, pixel):
+    """Each live slot of ``pixel``'s ray tree in two recorded frames: the
+    nearest query's hit, triangle, t, u and v in each, its texel
+    coordinates and each shadow query's verdict and light threshold."""
+    r0 = a[1][0]["origin"].shape[0]
+    per = 1 + flat.num_lights
+    (lv_a, pos_a), (lv_b, pos_b) = (_tree_slots(f[1], f[2], r0, per)
+                                    for f in (a, b))
+    for level, (la, lb) in enumerate(zip(lv_a, lv_b)):
+        r = la[0]["origin"].shape[0]
+        for c in range(pixel, r, r0):
+            ia, ib = int(pos_a[level][c]), int(pos_b[level][c])
+            if not (torch.isfinite(la[0]["direction"][ia]).all()
+                    or torch.isfinite(lb[0]["direction"][ib]).all()):
+                continue
+            ha, hb = la[0]["hit"], lb[0]["hit"]
+            line = (f"      level {level} slot {c}: hit {bool(ha.hit[ia])}/"
+                    f"{bool(hb.hit[ib])} tri {int(ha.tri[ia])}/"
+                    f"{int(hb.tri[ib])} t {float(ha.t[ia]):.8g}/"
+                    f"{float(hb.t[ib]):.8g} u {float(ha.u[ia]):.7g}/"
+                    f"{float(hb.u[ib]):.7g} v {float(ha.v[ia]):.7g}/"
+                    f"{float(hb.v[ib]):.7g}")
+            if "texel" in la[0]:
+                line += (f" texel {la[0]['texel']['coord'][ia].tolist()}/"
+                         f"{lb[0]['texel']['coord'][ib].tolist()}")
+            for j, (sa, sb) in enumerate(zip(la[1:], lb[1:])):
+                line += (f"; light {j} hit {bool(sa['hit'].hit[ia])}/"
+                         f"{bool(sb['hit'].hit[ib])} edge "
+                         f"{float(sa['edge'][ia]):.3g}/"
+                         f"{float(sb['edge'][ib]):.3g}")
+            print(line)
+
+
+def _trace_frames(flat, a, b):
+    """Two frames of the same primary rays (``_record_frame`` of each)
+    compared slot by slot over their ray trees.  At every level and query a
+    slot whose hit, triangle or shadow verdict differs between the frames
+    is explained by a traced difference of its ancestors (or, for a shadow
+    query, of its own nearest query), or is traced itself (``_trace_calls``
+    on each frame's own ray); a slot live in one frame and dead in the
+    other must be so explained (a child lives where its parent hit and its
+    weight is not zero), or for a shadow ray (cast where the light reaches
+    the fragment) be traced to a fragment within QUERY_EPS of the light's
+    threshold in both frames (``_record_frame``'s ``edge``).  A hit on the
+    same triangle whose point-filtered texel differs is traced where the
+    two frames' texture coordinates lie within TEXEL_EPS of each other
+    across a texel edge.  Returns (pixels with a traced difference in
+    their tree, per-query lines, untraced slots)."""
+    (_, calls_a, ord_a), (_, calls_b, ord_b) = a, b
+    r0 = calls_a[0]["origin"].shape[0]
+    per = 1 + flat.num_lights
+    lv_a, pos_a = _tree_slots(calls_a, ord_a, r0, per)
+    lv_b, pos_b = _tree_slots(calls_b, ord_b, r0, per)
+    if [len(x) for x in lv_a] != [len(x) for x in lv_b]:
+        raise AssertionError("the two frames made different queries")
+    dev = calls_a[0]["origin"].device
+    lines, untraced = [], 0
+    here = torch.zeros(r0, dtype=torch.bool, device=dev)
+    for level, (la, lb) in enumerate(zip(lv_a, lv_b)):
+        r = la[0]["origin"].shape[0]
+        # Slots whose parent has a traced difference.
+        here = here[torch.arange(r, device=dev) % here.shape[0]]
+        inherited = here.clone()
+        for j, (ca, cb) in enumerate(zip(la, lb)):
+            ta, tb = _tree_call(ca, pos_a[level]), _tree_call(cb, pos_b[level])
+            ha, hb = ta["hit"], tb["hit"]
+            if ca["any_hit"]:
+                diff = ((ha.hit & (ha.t < ta["t_max"]))
+                        != (hb.hit & (hb.t < tb["t_max"])))
+            else:
+                diff = (ha.hit != hb.hit) | (ha.hit & hb.hit
+                                             & (ha.tri != hb.tri))
+            explained = inherited if j == 0 else nearest
+            live_a = torch.isfinite(ta["direction"]).all(-1)
+            live_b = torch.isfinite(tb["direction"]).all(-1)
+            alive = live_a != live_b
+            rays = (diff & live_a & live_b & ~explained).nonzero()[:, 0]
+            ok, tie, margin = _trace_calls(flat, ta, tb, rays, QUERY_EPS,
+                                           QUERY_RTOL)
+            here[rays[ok]] = True
+            lone = alive & ~explained
+            if j > 0:
+                edge = lone & (torch.maximum(ta["edge"], tb["edge"])
+                               <= QUERY_EPS)
+                here |= edge
+                lone &= ~edge
+            flips, texel_flips = torch.zeros_like(here), 0
+            if j == 0 and ta["texel"]:
+                xa, xb = ta["texel"], tb["texel"]
+                same = (live_a & live_b & ha.hit & hb.hit & ~diff
+                        & ~explained & xa["use"] & xb["use"])
+                flips = same & (xa["coord"].trunc() != xb["coord"].trunc()
+                                ).any(-1)
+                straddle = lambda k: (  # noqa: E731
+                    ((xa[k] - xb[k]).abs() <= TEXEL_EPS)
+                    & (xa[k].floor() != xb[k].floor()))
+                across = ((xa["coord"].trunc() == xb["coord"].trunc())
+                          | straddle("coord") | straddle("raw")).all(-1)
+                texel_flips = int((flips & across).sum())
+                here |= flips & across
+                flips &= ~across
+            if j == 0:
+                nearest = here.clone()
+            bad = int((~ok).sum() + lone.sum() + flips.sum())
+            untraced += bad
+            near = ok & (margin < QUERY_EPS)
+            lines.append({
+                "level": level, "query": j, "any_hit": ca["any_hit"],
+                "differ": int(diff.sum()),
+                "inherited": int((diff & explained).sum()),
+                "traced": int(ok.sum()), "ties": int(tie.sum()),
+                "live_in_one": int(alive.sum()),
+                "texel_flips": texel_flips, "untraced": bad,
+                "largest_margin": float(margin[near].max())
+                if bool(near.any()) else 0.0})
+            for k in (~ok).nonzero()[:5, 0].tolist():
+                c = int(rays[k])
+                print(f"    untraced: level {level} query {j} slot {c} "
+                      f"(pixel {c % r0}) margin {float(margin[k]):.3e}, "
+                      f"hit {bool(ha.hit[c])}/{bool(hb.hit[c])} tri "
+                      f"{int(ha.tri[c])}/{int(hb.tri[c])} t "
+                      f"{float(ha.t[c]):.7g}/{float(hb.t[c]):.7g}")
+            for c in lone.nonzero()[:5, 0].tolist():
+                print(f"    untraced: level {level} query {j} slot {c} "
+                      f"(pixel {c % r0}) live in one frame only")
+            for c in flips.nonzero()[:5, 0].tolist():
+                print(f"    untraced: level {level} slot {c} (pixel "
+                      f"{c % r0}) another texel, coordinates "
+                      f"{ta['texel']['coord'][c].tolist()} / "
+                      f"{tb['texel']['coord'][c].tolist()}")
+    # The last level holds every slot's descendants: a pixel's tree has a
+    # traced difference where one of its last-level slots inherited one.
+    return here.reshape(-1, r0).any(0), lines, untraced
 
 
 def phase_query(dev, card, flat128, rays, img128, record):
@@ -2514,6 +2911,7 @@ def phase_query(dev, card, flat128, rays, img128, record):
     from raytpu_torch.accel import traverse
     from raytpu_torch.accel.traverse import nearest_hit, resolve_intersector
     from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.core.xna import quantize_color
     from raytpu_torch.render.wavefront import (_default_query,
                                                block_order_perm,
                                                render_image, trace_colors)
@@ -2545,23 +2943,39 @@ def phase_query(dev, card, flat128, rays, img128, record):
                      ("auto", cfg)):
             ms[k].append(_cuda_ms(lambda: render_image(flat, q, camera), 2))
         walk_img = render_image(flat, wcfg, camera)
-        calls = []
         auto_q, walk_q = _default_query(cfg), _default_query(wcfg)
-        trace_colors(flat, cfg, o[perm], d[perm],
-                     query=_recording_hook(calls, auto_q))
+        # The frames before the framebuffer's rounding (Quantize.FINAL
+        # rounds each pixel once, after the combine).
+        frame_a, frame_w = (_record_frame(
+            flat, dataclasses.replace(q, quantize=Quantize.NONE), o[perm],
+            d[perm], _default_query(q)) for q in (cfg, wcfg))
+        for got, image in ((frame_a, img), (frame_w, walk_img)):
+            if not torch.equal(quantize_color(got[0]),
+                               image.reshape(-1, 3)[perm]):
+                raise AssertionError("the recorded frame is not the image")
+        # Each of AUTO's queries through the walk, on the same rays.
+        calls = frame_a[1]
         n_diff = n_untraced = n_ties = 0
         t_err = 0.0
         for call in calls:
             kw = {k: call[k] for k in ("ignore_tri", "ignore_mesh", "t_max",
                                        "any_hit", "cull")}
             walk = walk_q(flat, call["origin"], call["direction"], **kw)
-            n, u, ties, te = _against_walk(flat, call, call["hit"], walk,
-                                           f"flagship {c}")
+            n, u, ties, te = _against_walk(flat, call, call["hit"], walk)
             n_diff, n_untraced, n_ties = n_diff + n, n_untraced + u, \
                 n_ties + ties
             t_err = max(t_err, te)
-        delta = (img - walk_img).abs().amax(-1)
-        px = int((delta > 1e-4).sum())
+        # The two frames, slot by slot over their ray trees.
+        caused, lines, tree_untraced = _trace_frames(flat, frame_a, frame_w)
+        delta = (frame_a[0] - frame_w[0]).abs().amax(-1)
+        beyond = delta > QUERY_PIXEL_TOL
+        px, px_bad = int(beyond.sum()), int((beyond & ~caused).sum())
+        # The images: beyond those pixels only the rounding of colours
+        # within QUERY_PIXEL_TOL of each other, one step of 1/255 at most.
+        steps = ((quantize_color(frame_a[0]) - quantize_color(frame_w[0]))
+                 .abs().amax(-1) * 255).round()
+        flips = ~beyond & (steps > 0)
+        px_bad += int((flips & (steps > 1)).sum())
         brute_s = _once_ms(lambda: auto_q(
             flat, calls[0]["origin"], calls[0]["direction"],
             ignore_tri=calls[0]["ignore_tri"],
@@ -2573,20 +2987,31 @@ def phase_query(dev, card, flat128, rays, img128, record):
               f"{[round(v, 3) for v in ms['walk']]}); the sweep's primary "
               f"query of {calls[0]['origin'].shape[0]} rays x "
               f"{flat.num_tris} triangles {brute_s:.3f} s; {len(calls)} "
-              f"queries, "
-              f"rays whose hit or triangle differs {n_diff} ({n_ties} exact-t "
-              f"ties, untraced {n_untraced}), t err {t_err:.2e}; pixels "
-              f"beyond 1e-4 {px} (at most {QUERY_PIXELS * delta.numel():.0f}"
-              f"), largest {float(delta.max()):.3g}")
-        if (n_untraced or t_err > QUERY_RTOL
-                or px > QUERY_PIXELS * delta.numel()):
+              f"queries, the walk on AUTO's rays: rays whose hit or "
+              f"triangle differs {n_diff} ({n_ties} exact-t ties, untraced "
+              f"{n_untraced}), t err {t_err:.2e}")
+        for line in lines:
+            if line["differ"] or line["live_in_one"]:
+                print(f"    frames, level {line['level']} query "
+                      f"{line['query']}: {line}")
+        print(f"    before rounding, pixels beyond {QUERY_PIXEL_TOL} {px} "
+              f"(largest {float(delta.max()):.3g}), untraced {px_bad}; "
+              f"untraced slots {tree_untraced}; the images differ in "
+              f"{int((steps > 0).sum())} pixels (largest {int(steps.max())}"
+              f"/255), {int(flips.sum())} of them rounding flips of "
+              f"colours within {QUERY_PIXEL_TOL}")
+        for k in (beyond & ~caused).nonzero()[:10, 0].tolist():
+            print(f"    untraced pixel {k}: {float(delta[k]):.3g}")
+            _print_tree(flat, frame_a, frame_w, k)
+        if (n_untraced or t_err > QUERY_RTOL or tree_untraced or px_bad):
             raise AssertionError(f"the flagship at {c} through AUTO differs "
                                  "from the walk beyond traced rays")
         out[f"flagship_{c}"] = {"auto_turns_ms": ms["auto"],
                                 "walk_turns_ms": ms["walk"],
                                 "brute_primary_s": brute_s,
                                 "differ": n_diff, "ties": n_ties,
-                                "pixels": px}
+                                "pixels": px, "rounding_flips":
+                                int(flips.sum()), "frame_queries": lines}
 
     # The bench frame's queries through the tiled and octree backends.
     bcfg = RenderConfig(width=RES, height=RES, max_reflections=0,
@@ -2622,8 +3047,7 @@ def phase_query(dev, card, flat128, rays, img128, record):
                               intersector=mode, cull_tile=RAYS_PER_TILE, **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t1
-            n, u, ties, te = _against_walk(scene, call, got, call["hit"],
-                                           backend)
+            n, u, ties, te = _against_walk(scene, call, got, call["hit"])
             live = int(torch.isfinite(call["direction"]).all(-1).sum())
             line = {"any_hit": call["any_hit"], "s": secs, "rays": live,
                     "differ": n, "untraced": u, "ties": ties, "t_rel": te}
@@ -2660,9 +3084,8 @@ def phase_query(dev, card, flat128, rays, img128, record):
     shifted = int((shadow["origin"] != light).any(-1).sum())
     differ = (img != img128).any(-1)
     px = differ.nonzero()[:, 0]
-    margin = torch.minimum(_trace_rays(flat128, shadow, px, QUERY_EPS),
-                           _trace_rays(flat128, calls[1], px, QUERY_EPS))
-    untraced = int((~(margin < QUERY_EPS)).sum())
+    untraced = int((~_trace_calls(flat128, shadow, calls[1], px, QUERY_EPS,
+                                  QUERY_RTOL)[0]).sum())
     ms = [_cuda_ms(lambda: trace_colors(flat128, c, *rays), REPS)
           for c in (bcfg, ccfg, ccfg, bcfg)]
     print(f"  bench frame with shadow_clearance=True: {shifted} of "

@@ -11,7 +11,11 @@
 // (raytpu/accel/clusters.py:196-225): R is (rays, 16), each ray's row
 // [d, w = d x o, o, 1, 0 x 6], and G the block's (16, 4C) coefficients, so
 // that the product's four C-wide column blocks are det, u*det, v*det and
-// t*det of every (ray, triangle) pair.
+// t*det of every (ray, triangle) pair.  Only 19 of G's 64 rows across the
+// four blocks are nonzero: det reads R's entries 0-2, u*det and v*det 0-5,
+// t*det 6-9.  So each column block needs one k8 step of the product: the
+// first three take R's entries 0-7 against G's rows 0-7, the fourth R's
+// entries 6-13 against G's rows 6-13.
 //
 // The product runs as mma.sync.m16n8k8 in TF32 (10 explicit mantissa bits,
 // float32 accumulation).  Both operands are rounded to TF32 by
@@ -28,15 +32,17 @@
 // One thread block walks one tile, one ray per thread for the walk's
 // state; the pair test is per warp:
 //   - each warp holds the TF32 A fragments of its 32 rays' R rows (two
-//     m16 tiles, K = 16 in two k-steps; hi and lo parts) in registers for
-//     the whole walk, gathered once by shuffles from the rays' threads;
-//   - a trip stages each picked block's coefficient rows 0-15 (rounded to
-//     TF32 hi and, for ``highest``, lo parts; rows padded by 8 floats so a
-//     warp's B-fragment loads hit 32 banks) and its id row into shared
-//     memory;
-//   - for each group of 8 triangles the warp issues, per m16 tile, the
-//     products of the four column blocks at columns j, C + j, 2C + j and
-//     3C + j.  The m16n8 accumulator layout is the same for all four, so a
+//     m16 tiles; the two k8 steps, entries 0-7 and 6-13; hi and lo parts)
+//     in registers for the whole walk, gathered once by shuffles from the
+//     rays' threads;
+//   - a trip stages each picked block's 8 coefficient rows of each column
+//     block (rounded to TF32 hi and, for ``highest``, lo parts; rows padded
+//     by 8 floats so a warp's B-fragment loads hit 32 banks) and its id row
+//     into shared memory;
+//   - for each group of 8 triangles the warp issues, per m16 tile, one k8
+//     product (three with ``highest``) of each column block, at columns j,
+//     C + j, 2C + j and 3C + j.  The m16n8 accumulator layout is the same
+//     for all four, so a
 //     thread holds det, udet, vdet and tdet of the same 4 (ray, triangle)
 //     pairs and applies the accept rules (walk_common.cuh) and, nearest,
 //     the strict-min over its own triangles in lane order;
@@ -51,10 +57,11 @@
 // of R makes only its own row NaN, never accepted, and it starts resolved,
 // so no NaN reaches the trip's caps.
 //
-// What bounds it on an H100: per tested block and ray, 2 * 16 * 4C
-// multiply-adds on the tensor cores (x3 for ``highest``) at 495 TFLOP/s
-// (TF32, dense), and C pairs' acceptance and min on the FP32 units; a
-// staged block is 66C floats, 4x the exact walk's.  No wgmma, TMA or
+// What bounds it on an H100: per tested block and ray, the 19C nonzero
+// multiply-adds of the product on the tensor cores (x3 for ``highest``; it
+// issues 32C, k8 steps) at 495 TFLOP/s (TF32, dense), and C pairs'
+// acceptance and min on the FP32 units; a staged block is 34C floats (68C
+// with ``highest``), against the exact walk's 24C.  No wgmma, TMA or
 // persistent blocks yet.
 
 #include <cstdint>
@@ -63,7 +70,9 @@
 
 namespace {
 
-constexpr int kGRows = 16;  // coefficient rows of a gblock block
+constexpr int kGRows = 8;   // staged coefficient rows of a column block
+constexpr int kTRow = 6;    // the first gblock row of t*det's k8 step
+constexpr int kIdRow = 16;  // the gblock row of the triangle and mesh ids
 constexpr int kGPad = 8;    // row padding of the staged coefficients
 constexpr int kMaxChunk = 8;
 
@@ -83,7 +92,7 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 }
 
 // Floats of one staged block: the hi (and, highest, lo) coefficient rows
-// and the 2C ids.
+// and the 2C ids (kernels/fused.py::_smem_bytes).
 __device__ __host__ inline int staged_floats(int C, int highest) {
   return kGRows * (4 * C + kGPad) * (highest ? 2 : 1) + 2 * C;
 }
@@ -166,8 +175,9 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
                       d[0] * o[1] - d[1] * o[0]};
 
   // The warp's A fragments: rows are its 32 rays (m16 tiles mt = 0, 1),
-  // columns the 16 entries of R (k-steps ks = 0, 1).  Lane l holds rows
-  // g = l / 4 and g + 8 of each tile, columns tig = l % 4 and tig + 4.
+  // columns 8 entries of R (k-steps ks = 0: entries 0-7, for det, u*det
+  // and v*det; ks = 1: entries 6-13, for t*det).  Lane l holds rows g =
+  // l / 4 and g + 8 of each tile, columns tig = l % 4 and tig + 4.
   const unsigned full = 0xffffffffu;
   const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
   const float rk[10] = {d[0], d[1], d[2], w[0], w[1], w[2],
@@ -188,7 +198,7 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
         const float v = __shfl_sync(full, rk[kk], src);
         if (kk == tig) av[0][half] = v;
         if (kk == tig + 4) av[0][2 + half] = v;
-        if (kk == tig + 8) av[1][half] = v;
+        if (kk == tig + kTRow) av[1][half] = v;  // entries 10-13 are 0
       }
       const int s = 2 * mt + half;
       s_itri[s] = __shfl_sync(full, ray.itri, src);
@@ -243,7 +253,8 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
       }
       run |= 1u << j;
     }
-    // Stage the tested blocks: TF32 hi (and lo) coefficients, ids.
+    // Stage the tested blocks: TF32 hi (and lo) coefficients, rows 0-7 of
+    // the first three column blocks and rows 6-13 of the fourth; ids.
     for (int j = 0; j < K; ++j) {
       if (!((run >> j) & 1u)) continue;
       ++tests;
@@ -254,14 +265,14 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
       int* ids = reinterpret_cast<int*>(hi + kGRows * LD * (highest ? 2 : 1));
       for (int e = tid; e < kGRows * 4 * C; e += blockDim.x) {
         const int row = e / (4 * C), c = e - row * 4 * C;
-        const float x = src[e];
+        const float x = src[(c < 3 * C ? row : row + kTRow) * 4 * C + c];
         const uint32_t h = tf32_bits(x);
         hi[row * LD + c] = __uint_as_float(h);
         if (highest) lo[row * LD + c] = __uint_as_float(
             tf32_bits(x - __uint_as_float(h)));
       }
       for (int e = tid; e < 2 * C; e += blockDim.x) {
-        ids[e] = __float_as_int(src[kGRows * 4 * C + e]);
+        ids[e] = __float_as_int(src[kIdRow * 4 * C + e]);
       }
     }
     __syncthreads();
@@ -280,19 +291,16 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
         found[s] = false;
       }
       for (int j8 = 0; j8 < C; j8 += 8) {
-        // B fragments of the four column blocks: rows 8ks + tig (+4),
+        // B fragments of the four column blocks: staged rows tig (+4),
         // column q*C + j8 + g.
-        uint32_t bhi[4][2][2], blo[4][2][2];
+        uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
 #pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const int e = (8 * ks + tig + 4 * i) * LD + q * C + j8 + g;
-              bhi[q][ks][i] = __float_as_uint(hi[e]);
-              blo[q][ks][i] = highest ? __float_as_uint(lo[e]) : 0u;
-            }
+          for (int i = 0; i < 2; ++i) {
+            const int e = (tig + 4 * i) * LD + q * C + j8 + g;
+            bhi[q][i] = __float_as_uint(hi[e]);
+            blo[q][i] = highest ? __float_as_uint(lo[e]) : 0u;
           }
         }
 #pragma unroll
@@ -300,22 +308,14 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
           float acc[4][4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
+            const int ks = q == 3 ? 1 : 0;
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
             if (highest) {
-#pragma unroll
-              for (int ks = 0; ks < 2; ++ks) {
-                mma_tf32(acc[q], ahi[mt][ks], blo[q][ks][0], blo[q][ks][1]);
-              }
-#pragma unroll
-              for (int ks = 0; ks < 2; ++ks) {
-                mma_tf32(acc[q], alo[mt][ks], bhi[q][ks][0], bhi[q][ks][1]);
-              }
+              mma_tf32(acc[q], ahi[mt][ks], blo[q][0], blo[q][1]);
+              mma_tf32(acc[q], alo[mt][ks], bhi[q][0], bhi[q][1]);
             }
-#pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-              mma_tf32(acc[q], ahi[mt][ks], bhi[q][ks][0], bhi[q][ks][1]);
-            }
+            mma_tf32(acc[q], ahi[mt][ks], bhi[q][0], bhi[q][1]);
           }
           // Accumulator i: ray g (+8 for i >= 2) of tile mt, triangle
           // j8 + 2 tig + (i & 1).
@@ -397,7 +397,7 @@ __global__ void mxu_walk_kernel(WalkArgs a) {
 }
 
 // Dynamic shared memory of a block: the entry table, K staged blocks, the
-// group's entries and ids (kernels/fused.py::_mxu_smem_bytes).
+// group's entries and ids (kernels/fused.py::_smem_bytes).
 size_t mxu_smem_bytes(const WalkArgs& a) {
   const size_t k = a.chunk_k;
   return sizeof(float) * (a.ncg + k * staged_floats(a.csize, a.highest)) +

@@ -983,14 +983,22 @@ _BEAM_BYTES = 128
 
 
 def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
-                subk: int = 1) -> int:
+                subk: int = 1, mxu: Optional[str] = None) -> int:
     """Dynamic shared memory of one walk block: the entry (key) table and
     one staged cluster block and, for the prepick walk, its picks (entry
     and id).  ``chunk_k`` > 0: the group kernel's, with ``chunk_k`` staged
     blocks, the group's keys and ids and, ``subk`` > 1, their sibling
-    entries and the beam (csrc/subwalk.cu ``group_smem_bytes``).  The
-    re-cull needs no table of its own: a consumed cluster's entry is marked
-    +inf in place (``CONSUMED``)."""
+    entries and the beam (csrc/subwalk.cu ``group_smem_bytes``).  ``mxu``:
+    the tensor-core walk's at that precision, whose staged block is 8
+    coefficient rows of each of its 4 column blocks, each row padded by 8
+    floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C ids
+    (csrc/mxuwalk.cu ``mxu_smem_bytes``).  The re-cull needs no table of
+    its own: a consumed cluster's entry is marked +inf in place
+    (``CONSUMED``)."""
+    if mxu:
+        parts = 2 if mxu == "highest" else 1
+        staged = 8 * (4 * csize + 8) * parts + 2 * csize
+        return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
     if not chunk_k:
         return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
     n = 4 * (ncg + chunk_k * GEO_ROWS * csize) + 8 * chunk_k
@@ -1030,8 +1038,9 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
     the rays' device, of the kernel's dtype and shape, contiguous, at most
     ``MAX_CHUNK`` picks per trip, and the block's shared memory within the
     card's limit.  ``picks``: the prepick walk's (None for the others);
-    ``spec``: the classic or subcluster walk's tables and shape; ``group``:
-    the walk launches the group kernel."""
+    ``spec``: the classic or subcluster walk's tables and shape (with
+    ``spec.mxu``, the tensor-core walk's ``gblock``); ``group``: the walk
+    launches the group kernel."""
     _check_walk_args(cull, recull_every, max_trips, picks)
     block = clusters["block"]
     r, ts = q.origin.shape[0], q.tile
@@ -1060,15 +1069,24 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
         if spec.chunk_k > MAX_CHUNK:
             raise ValueError(f"chunk_k {spec.chunk_k} exceeds the kernel's "
                              f"{MAX_CHUNK} picks per trip")
+        if spec.mxu:
+            chunk_k = spec.chunk_k
+            tables.append(("gblock", clusters["gblock"], f32,
+                           (ncg, 24, 4 * csize)))
+            if csize % 8:
+                raise ValueError(f"the tensor-core walk tests groups of 8 "
+                                 f"triangles; blocks of {csize} lanes")
     for name, x, dtype, shape in tables:
         _check(name, x, q.origin.device, dtype, shape)
-    need = _smem_bytes(ncg, csize, picks or 0, chunk_k, subk)
+    mxu = spec.mxu if spec is not None else None
+    need = _smem_bytes(ncg, csize, picks or 0, chunk_k, subk, mxu)
     if need > SMEM_LIMIT:
         what = (f" and {picks} picks" if picks else
                 f" and {chunk_k} picks per trip" if chunk_k else "")
+        prec = f" with mxu precision {mxu!r}" if mxu else ""
         raise ValueError(
             f"{ncg} clusters of {csize}{what} need {need} bytes of shared "
-            f"memory per block; the limit is {SMEM_LIMIT}")
+            f"memory per block{prec}; the limit is {SMEM_LIMIT}")
 
 
 def _outputs(r, nt, dev, nearest):
@@ -1098,72 +1116,13 @@ def _launch(name, fn, args, dev):
     LAUNCHES[name] += 1
 
 
-def _mxu_smem_bytes(ncg: int, csize: int, chunk_k: int,
-                    precision: str) -> int:
-    """Dynamic shared memory of one tensor-core walk block: the entry
-    table, ``chunk_k`` staged blocks (the 16 coefficient rows, each padded
-    by 8 floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C
-    ids) and the group's entries and ids (csrc/mxuwalk.cu
-    ``mxu_smem_bytes``)."""
-    parts = 2 if precision == "highest" else 1
-    staged = 16 * (4 * csize + 8) * parts + 2 * csize
-    return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
-
-
-def _launch_mxu(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
-                rows):
-    """Launch ``mxu_walk_kernel`` of ``csrc/mxuwalk.cu``: the classic walk
-    (one leaf per block, the block's plane when the bake has one) with the
-    pair test on the tensor cores at ``spec.mxu`` precision."""
-    dev = q.origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"walk_cuda(mxu=...) needs CUDA tensors, got {dev}")
-    _validate(clusters, tri_shade, q, cull, spec.recull_every,
-              spec.max_trips)
-    if spec.chunk_k > MAX_CHUNK:
-        raise ValueError(f"chunk_k {spec.chunk_k} exceeds the kernel's "
-                         f"{MAX_CHUNK} picks per trip")
-    gblock = clusters["gblock"]
-    ncg, _, csize = clusters["block"].shape
-    _check("gblock", gblock, dev, torch.float32, (ncg, 24, 4 * csize))
-    if csize % 8:
-        raise ValueError(f"the tensor-core walk tests groups of 8 "
-                         f"triangles; blocks of {csize} lanes")
-    need = _mxu_smem_bytes(ncg, csize, spec.chunk_k, spec.mxu)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"{ncg} clusters of {csize} and {spec.chunk_k} picks per trip "
-            f"need {need} bytes of shared memory per block with mxu "
-            f"precision {spec.mxu!r}; the limit is {SMEM_LIMIT}")
-    r, ts = q.origin.shape[0], q.tile
-    p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    out = _outputs(r, r // ts, dev, not any_hit)
-    if rows and not any_hit:
-        out["rows"] = torch.empty((r, 32), dtype=torch.float32, device=dev)
-    head = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
-            p(q.ignore_mesh), r, ts, p(clusters["root"]), p(clusters["aabb"]),
-            p(spec.plane[0] if spec.plane is not None else None), p(gblock),
-            ncg, csize)
-    shape = (_CULL_CODE[cull], int(spec.pretest), spec.recull_every,
-             spec.max_trips, spec.chunk_k, int(spec.mxu == "highest"))
-    counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
-    if any_hit:
-        args = (*head, *shape, p(out["t"]), p(out["code"]), *counts)
-    else:
-        args = (*head, p(tri_shade), *shape, p(out["t"]), p(out["code"]),
-                p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows")),
-                *counts)
-    _launch(kernel_name(any_hit, spec.pretest, spec.max_trips > 0,
-                        chunk=spec.chunk_k > 1, mxu=spec.mxu),
-            "rt_mxu_" + ("any_hit" if any_hit else "nearest"), args, dev)
-    return WalkOut(**out)
-
-
 def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
                  rows, sub: bool):
     """Launch the classic walk (``sub`` False) or the subcluster walk:
     ``walk_kernel`` for the classic walk with one pick per trip, the group
-    kernel ``subwalk_kernel`` for every other."""
+    kernel ``subwalk_kernel`` for every other, and ``mxu_walk_kernel``
+    for the classic walk with ``spec.mxu`` (the block's plane when the
+    bake has one)."""
     dev = q.origin.device
     name = "subwalk_cuda" if sub else "walk_cuda"
     if dev.type != "cuda":
@@ -1187,7 +1146,12 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
               (p(out["u"]), p(out["v"]), p(out["tri"]), p(out.get("rows"))))
     shade = () if any_hit else (p(tri_shade),)
     kind = "any_hit" if any_hit else "nearest"
-    if group:
+    if spec.mxu:
+        args = (*rays, plane, p(clusters["gblock"]), ncg, csize, *shade,
+                *shape, spec.chunk_k, int(spec.mxu == "highest"),
+                p(out["t"]), p(out["code"]), *winner, *counts)
+        fn = "rt_mxu_" + kind
+    elif group:
         args = (*rays, p(block), ncg, csize, p(spec.aabb), plane,
                 spec.aabb.shape[0], *shade, *shape, spec.chunk_k,
                 int(spec.gate), p(out["t"]), p(out["code"]), *winner,
@@ -1198,8 +1162,8 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
                 p(out["t"]), p(out["code"]), *winner, *counts)
         fn = "rt_" + ("any_hit" if any_hit else "nearest_hit")
     _launch(kernel_name(any_hit, spec.pretest, spec.max_trips > 0, sub=sub,
-                        gate=spec.gate, chunk=spec.chunk_k > 1), fn, args,
-            dev)
+                        gate=spec.gate, chunk=spec.chunk_k > 1,
+                        mxu=spec.mxu), fn, args, dev)
     return WalkOut(**out)
 
 
@@ -1220,8 +1184,6 @@ def walk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
     spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
                       recull_every=recull_every, max_trips=max_trips,
                       mxu=mxu)
-    if mxu is not None:
-        return _launch_mxu(clusters, tri_shade, q, cull, any_hit, spec, rows)
     return _launch_walk(clusters, tri_shade, q, cull, any_hit, spec, rows,
                         sub=False)
 

@@ -50,6 +50,7 @@ from raytpu_torch.accel.traverse import nearest_hit, resolve_intersector
 from raytpu_torch.config import Intersector, RenderConfig
 from raytpu_torch.diff.fit import rebuild_accel
 from raytpu_torch.diff.params import GEOMETRY, extract_params
+from raytpu_torch.kernels import fused
 from raytpu_torch.kernels.fused import nearest_hit_fused
 from raytpu_torch.render.wavefront import render_rays
 from raytpu_torch.scene import types as ttypes
@@ -356,7 +357,9 @@ def test_mxu_walk_shapes_keep_the_hits():
 def test_mxu_on_a_subcluster_bake_and_its_errors():
     """On a subcluster bake ``mxu`` is the block-granularity classic walk
     without planes, as in the JAX package; the JAX package's
-    ``ValueError``s."""
+    ``ValueError``s; what the tensor-core walk's wrapper refuses before a
+    launch (a ``gblock`` of the wrong shape, a ``chunk_k`` whose staged
+    blocks exceed the shared memory)."""
     jflat, pflat = _mxu_flat(flagship, 32)
     o, d = random_rays(4, 64)
     ref = jax.jit(lambda s, o, d: jfused(s, o, d, tile_size=32, mxu=True,
@@ -374,3 +377,14 @@ def test_mxu_on_a_subcluster_bake_and_its_errors():
     with pytest.raises(ValueError, match="mxu_precision"):
         nearest_hit_fused(pflat, o, d, mxu=True, mxu_precision="high")
     assert nearest_hit_fused(pflat, o, d, mxu=None).hit.any()
+    q = fused.pack_query(o, d, tile_size=32)
+    spec = fused._walk_spec(pflat.clusters, False, True, 2, mxu="highest")
+    fused._validate(pflat.clusters, pflat.tri_shade, q, True, spec=spec)
+    cut = dict(pflat.clusters, gblock=pflat.clusters["gblock"][..., 1:])
+    with pytest.raises(ValueError, match="gblock"):
+        fused._validate(cut, pflat.tri_shade, q, True, spec=spec)
+    # The bench terrain's bake (7,811 blocks of 128): 2 picks a trip fit
+    # at "highest", 8 do not.
+    assert (fused._smem_bytes(7811, 128, chunk_k=2, mxu="highest")
+            <= fused.SMEM_LIMIT
+            < fused._smem_bytes(7811, 128, chunk_k=8, mxu="highest"))

@@ -7,8 +7,10 @@ Each TREE is the root of a checkout (this one is ``.``).  Every turn is a
 fresh process that imports ``raytpu_torch`` and ``chip_smoke`` from its
 tree, builds that tree's kernels, bakes bench.py's terrain and times, with
 CUDA events, the 1024x1024 frame (primary + shadow rays), each of its
-walk calls, the prepick walk (64 picks) on the same queries, and the
-frame baked at cluster size 32 with its subcluster walk calls.  The trees
+walk calls, the prepick walk (64 picks) on the same queries, the
+frame baked at cluster size 32 with its subcluster walk calls and, where
+the tree bakes ``gblock``, the tensor-core walk's calls of the frame at
+each precision.  The trees
 run in the given order, then in reverse (A, B, B, A), so that drift of the
 card shows.  Prints one line per turn (with the
 registers and spill stores of each source's kernels), the card's name and
@@ -83,8 +85,26 @@ flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=SUB, device=dev,
                                        **bake_kw)
 sub_frame_ms = cs._cuda_ms(lambda: render_rays(flat, cfg, o, d), 8)
 sub, _ = timed_walks(flat, fused.subwalk_cuda)
+del flat
+# The tensor-core walk at each precision, where the tree bakes gblock.
+mxu = {}
+if "build_gblock" in inspect.signature(flatten_scene).parameters:
+    from raytpu_torch.render.wavefront import trace_colors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = cs.bench_scene(cs.TRIS).flatten(
+        cluster_size=cs.CLUSTER_SIZE, device=dev, build_gblock=True,
+        **bake_kw)
+    for prec in ("highest", "default"):
+        with cs.recording_walks() as calls:
+            trace_colors(flat, cfg, o, d, query=cs._fused_query(
+                mxu=True, mxu_precision=prec))
+        mxu[prec] = [{"any_hit": kw["any_hit"],
+                      "ms": cs._cuda_ms(lambda: fused.walk_cuda(
+                          c, s, q, **kw), 16)}
+                     for c, s, q, kw, _ in calls]
 print(json.dumps({"frame_ms": frame_ms, "walks": walks, "prepick": prepick,
-                  "sub_frame_ms": sub_frame_ms, "sub": sub,
+                  "sub_frame_ms": sub_frame_ms, "sub": sub, "mxu": mxu,
                   "registers": regs, "spill_store_bytes": spills}))
 '''
 
@@ -127,6 +147,9 @@ def main():
                         for w in res["prepick"])
               + f"; at {SUB}: frame {res['sub_frame_ms']:.3f} ms, subcluster "
               + ", ".join(f"{kind(w)} {w['ms']:.3f} ms" for w in res["sub"])
+              + "".join(f"; mxu {prec} " + ", ".join(
+                  f"{kind(w)} {w['ms']:.3f} ms" for w in walks)
+                  for prec, walks in res.get("mxu", {}).items())
               + "".join(
                   f"; {src} registers {'/'.join(r)} (spill stores "
                   f"{res['spill_store_bytes'].get(src, 0)} bytes)"
