@@ -10,8 +10,9 @@ Phases, each printing its lines:
    together);
 3. small: every walk kernel variant against its plain PyTorch version, bit
    for bit, trip counts and resolved flags included (nearest and any-hit;
-   pretest on and off; re-cull every 0, 2 and 6 trips; the prepick walk
-   with 2, 3 and 64 picks; trip budgets 1 and 4; cluster sizes 16 and 128;
+   pretest on and off; re-cull every 0, 1, 2 and 6 trips; the prepick walk
+   with 2, 3 and 64 picks; trip budgets 1 and 4; cluster sizes 10 (the
+   classic walk's scalar pair test), 16 and 128;
    the subcluster walk at cluster sizes 64 and 32 with cull True, False
    and "reverse", planes on and off, the gate on and off, 1, 2 and 3 picks
    a trip and trip budgets 1 and 4; the classic walk with 2 and 3 picks a
@@ -46,7 +47,8 @@ Phases, each printing its lines:
    multiples of 90 degrees, ~4M triangles in the world) through
    ``render_image_instanced`` at 1024x1024 with one reflection, the
    pretest variant's launch counter checked; every walk call of the frame
-   held against the plain walk on every 128th whole tile;
+   held against the plain walk on every 128th whole tile and the 4 tiles
+   with the most trips;
 6. subcluster frame: the bench frame baked at cluster sizes 64 and 32
    (bench.py's BENCH_CSIZE): the defaults take the subcluster walk, every
    walk call against the plain walk, the image the 128 frame's up to
@@ -170,6 +172,9 @@ NO_OPT_INS = {"cull_pretest": False, "cull_recull": 0}
 # INSTANCED_TILE_STRIDE-th whole tile (tiles walk independently; the full
 # plain walk of the frame's reflection calls takes ~500 s).
 INSTANCED_TILE_STRIDE = 128
+# ... and on the tiles with the most trips (thousands in the reflection
+# walks: hundreds of re-culls, the lazy re-cull's epochs wrapping).
+INSTANCED_LONGEST = 4
 # bench.py's BENCH_CSIZE settings of the subcluster frames, and the
 # subcluster walk's shapes run on their queries: the gate and multi-block
 # trips.
@@ -448,7 +453,10 @@ def _small_instanced_scene(reflect, transparent):
 # (any_hit, pretest, recull_every) of the small comparisons.
 SMALL_WALKS = [(a, p, r) for a in (False, True)
                for p, r in ((False, 0), (True, 0), (False, 2), (True, 2),
-                            (True, 6))]
+                            (True, 6), (True, 1))]
+# Cluster sizes of the small comparisons: 10 takes the classic walk's
+# scalar pair test (not a multiple of 4 lanes).
+SMALL_SIZES = (10, 16, 128)
 # Budgets of the small overflow comparisons: the prepick walk's picks and
 # the classic walk's trip budget, small enough to overflow and not.
 SMALL_PICKS = (2, 3, 64)
@@ -569,7 +577,7 @@ def phase_small(dev, record):
 
     rng = np.random.default_rng(0)
     print("[small] kernel vs plain walk on the card, sphere over plane")
-    for csize in (16, 128):
+    for csize in SMALL_SIZES:
         scene = _small_scene(csize, dev)
         tables = (scene.clusters, scene.tri_shade)
         o_t, d_t, itri, tmax = _small_rays(rng, 4096, scene, dev)
@@ -763,15 +771,19 @@ def recording_walks():
             setattr(fused, name, launch)
 
 
-def tile_subset(q, out, stride):
+def tile_subset(q, out, stride, longest=0):
     """Every ``stride``-th whole tile of the walk call ``q`` and its
-    kernel output ``out``: tiles walk independently, so the plain walk on
-    those tiles alone must give their outputs and counters bit for bit."""
+    kernel output ``out``, and the ``longest`` tiles with the most trips:
+    tiles walk independently, so the plain walk on those tiles alone must
+    give their outputs and counters bit for bit."""
     from raytpu_torch.kernels.fused import _PER_TILE, Query
 
     ts = q.tile
     nt = q.origin.shape[0] // ts
     tiles = torch.arange(0, nt, stride, device=q.origin.device)
+    if longest:
+        most = out.iters.argsort(descending=True, stable=True)[:longest]
+        tiles = torch.unique(torch.cat([tiles, most.to(tiles.dtype)]))
     rays = (tiles[:, None] * ts + torch.arange(
         ts, device=q.origin.device)).reshape(-1)
     sub = Query(*(a[rays] for a in q[:5]), ts)
@@ -782,15 +794,15 @@ def tile_subset(q, out, stride):
     return sub, part
 
 
-def check_recorded(calls, what, record, tile_stride=1):
+def check_recorded(calls, what, record, tile_stride=1, longest=0):
     """Hold every recorded walk call against the plain walk, on every
-    ``tile_stride``-th whole tile (1: all of them).  Returns the per-call
-    rows (options, max abs err, plain ms, trips, bound of the whole
-    call)."""
+    ``tile_stride``-th whole tile (1: all of them) and the ``longest``
+    tiles with the most trips.  Returns the per-call rows (options, max
+    abs err, plain ms, trips, bound of the whole call)."""
     out = []
     for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
         cq, cgot = (q, got) if tile_stride == 1 else tile_subset(
-            q, got, tile_stride)
+            q, got, tile_stride, longest)
         err, plain_ms = compare_walks(clusters, tri_shade, cq,
                                       f"{what} call {i}", record, got=cgot,
                                       **kw)
@@ -898,9 +910,10 @@ def phase_instanced(dev, record):
     live_rays = int(sum(int(x) for x in live))
     print(f"  {len(calls)} walk calls, {len(live)} instanced queries, "
           f"{live_rays} live rays; calls held against the plain walk on "
-          f"every {INSTANCED_TILE_STRIDE}th tile")
+          f"every {INSTANCED_TILE_STRIDE}th tile and the "
+          f"{INSTANCED_LONGEST} with the most trips")
     checked = check_recorded(calls, "instanced", record,
-                             INSTANCED_TILE_STRIDE)
+                             INSTANCED_TILE_STRIDE, INSTANCED_LONGEST)
     record.append({"what": "instanced frame", "world_tris": world_tris,
                    "launches": launches, "walk_calls": len(calls),
                    "live_rays": live_rays, "nonblack": nonblack})

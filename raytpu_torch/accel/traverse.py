@@ -221,18 +221,22 @@ _BY_NAME = {"auto": Intersector.AUTO, "brute": Intersector.BRUTE,
 def resolve_intersector(scene, intersector, brute_force_max_tris: int = 4096):
     """The backend ``nearest_hit`` takes (raytpu/accel/traverse.py:
     275-291): ``AUTO`` is the brute-force sweep for scenes of up to
-    ``brute_force_max_tris`` triangles; above that the cluster walk
-    (``PALLAS``: its CUDA kernels on the card, its plain version on the CPU,
-    at every cluster size) when the scene has clusters, else the octree
-    walk when it has an octree, else the sweep."""
+    ``brute_force_max_tris`` triangles; above that, when the scene has
+    clusters, the cluster walk (``PALLAS``, its CUDA kernels) on the card
+    at every cluster size, and ``TILED`` on the CPU, as the JAX package
+    takes it everywhere but on a TPU (its 128-lane condition is Mosaic's
+    rule, which the card does not have); else the octree walk when the
+    scene has an octree, else the sweep."""
     mode = (_BY_NAME[intersector] if isinstance(intersector, str)
             else Intersector(intersector))
     if mode != Intersector.AUTO:
         return mode
     if scene.num_tris <= brute_force_max_tris:
         return Intersector.BRUTE
-    if getattr(scene, "clusters", None) is not None:
-        return Intersector.PALLAS
+    clusters = getattr(scene, "clusters", None)
+    if clusters is not None:
+        on_card = clusters["block"].device.type == "cuda"
+        return Intersector.PALLAS if on_card else Intersector.TILED
     if getattr(scene, "octree", None) is not None:
         return Intersector.OCTREE
     return Intersector.BRUTE

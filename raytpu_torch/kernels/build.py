@@ -31,8 +31,9 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# Rays, tile, cluster tables and sizes, then each entry point's own.
-_COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
+# Rays, tile, cluster tables (the classic walk's: root, aabb, plane, group
+# boxes, block) and sizes, then each entry point's own.
+_COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I]
 # The prepick walk's: rays, tile, root, aabb, block, sizes; cull, picks.
 _PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I]
 # The group walk's: rays, tile, root, aabb, block, sizes, sub_aabb,

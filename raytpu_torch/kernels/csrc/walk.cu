@@ -24,25 +24,23 @@
 //      no planes) into shared memory;
 //   2. walk: a block-wide argmin picks the nearest remaining cluster (lowest
 //      id on equal entries), its geometry block is staged into shared memory
-//      with coalesced loads, and every thread tests its ray against the
-//      cluster's triangles in det-multiplied space;
+//      and the cluster's triangles are tested in det-multiplied space;
 //   3. settle: a nearest query resolves a ray once its best hit is at or
 //      before the next entry bound; an any-hit query at its first accepted
 //      hit or once its t bound is at or before the next entry.  The block
 //      stops when every ray is resolved, the entries run out or, with
 //      max_trips > 0, after that many trips.
 //
-// PRETEST: before staging a picked cluster, each thread slab-tests its ray
+// PRETEST: before a picked cluster is tested, each thread slab-tests its ray
 // against the cluster's box (the aabb table, equal to block rows 18-23,
 // widened by the root margin) up to its cap min(best_t, t_max), -inf once
-// resolved; a block vote (__syncthreads_or) skips both the staging and the
-// triangle tests when no ray can reach the box.  recull_every > 0: every that
-// many trips, after the settle check and while the block walks on, the entry
-// bounds of the clusters not yet consumed are rebuilt from the beam of the
-// unresolved rays only, pruned at the largest of their caps.  A consumed
-// cluster's entry is +inf (above every bound, FLOAT_MAX included), so the
-// re-cull needs no shared memory of its own.  A sub-beam's bounds are never
-// below the beam's in IEEE arithmetic, so picks stay non-decreasing.
+// resolved; a block vote skips both the staging and the triangle tests when
+// no ray can reach the box.  recull_every > 0: every that many trips, after
+// the settle check and while the block walks on, the entry bounds of the
+// clusters not yet consumed are rebuilt from the beam of the unresolved rays
+// only, pruned at the largest of their caps.  A consumed cluster's entry is
+// +inf (above every bound, FLOAT_MAX included).  A sub-beam's bounds are
+// never below the beam's in IEEE arithmetic, so picks stay non-decreasing.
 //
 // prepick_kernel: the same prologue with slab-only entry bounds (the
 // reference gives the fitted-plane rows only to its classic walk, and the
@@ -63,44 +61,556 @@
 // Thread 0 writes per tile the trips (clusters picked and walked: the
 // reference's ``iters``), the clusters whose triangles were tested, and the
 // ray tests the function needs: the unresolved rays of each tested cluster,
-// summed (every thread tests its ray, but a resolved ray's tests change
-// nothing).
+// summed.
 //
-// What bounds it on an H100: per tested cluster each thread does ~45 FP32
-// operations and 18 shared-memory loads per triangle, with the same
-// address across the warp (broadcast); the classic walk's argmin pick scans
-// the entry table (ncg floats in shared memory) once per trip, and a re-cull
-// recomputes it; the prepick walk pays up to F such scans before its walk
-// and none during it.  The design keeps everything a tile touches more than
-// once on chip: the entry table, the picks and the staged block live in
-// shared memory, and device memory is read once per tested cluster (18 of
-// its 24 * C floats are staged) and per ray.  No asynchronous copies or
-// double buffering yet (the reference's ``nbuf``-deep DMA ring has no
-// counterpart here).
-//
+// What bounds walk_kernel on an H100, and what its design does about it.
+// A trip is a serial chain: pick, pretest, stage, test, settle, re-cull;
+// the tiles of a call run in parallel, three blocks of 256 threads an SM.
+// Measured per trip with clock64 stamps (walk_split.py on an H100) before
+// this design: on the bench frame the pair tests took 68% of the block
+// time and the entry-table prologue 21%; on the instanced frame's
+// reflection walks a call lasted as long as its longest tile (7,201 trips
+// at ~16k clocks a trip, 74 of them tested), whose trip was 66% re-cull,
+// 23% pick scan and 7% pretest.  With it, that tile's trip is ~7.9k
+// clocks: four barrier-separated phases of 0.4k-2.8k each.
+//   - Pair tests: each staged geometry row is read as float4 across 4
+//     adjacent lanes (4 LDS.128 broadcasts a pair instead of 16 LDS.32), the
+//     4 pairs tested in lane order; when no pair of the warp can pass the u
+//     test (the first of its cull's sign tests), v, t and the acceptance
+//     are skipped; the ids rows and the division only for accepted pairs.
+//     Clusters whose size is not a multiple of 4 keep the scalar loop.
+//   - Few unresolved rays (at most half the block): their pair tests are
+//     spread over the idle threads, G threads a ray (G a power of two, at
+//     most 32, within a warp), each on its share of the lanes; the group
+//     reduces (t, lane) lexicographically and the ray takes the result only
+//     if its t is strictly below its best: exactly what the ascending loop
+//     with ``dist < best`` computes.  Resolved rays are not tested (their
+//     tests change nothing: every later entry is at or beyond their best).
+//   - Pick: each thread keeps the least (entry, id) of the entries it owns
+//     (ids = tid mod threads); a pick is two warp reductions (REDUX) of
+//     those, a barrier and two more.  After the trip's vote the owner's warp
+//     refreshes the owner's record, a lane an entry.
+//   - Re-cull, lazily: a re-cull stores the new beam (warp reductions of
+//     ordered keys) and starts a new epoch; every entry keeps the epoch that
+//     computed it, and each thread recomputes its least entry at once.  A
+//     pick takes the least entry of the newest epoch unless an older entry
+//     is at or below it (by entry, then id); then each thread with such an
+//     entry recomputes its least one under the newest beam and the pick is
+//     repeated.  Older entries are lower bounds of their newest values (and
+//     an infeasible one stays infeasible), so the picks and their entries
+//     are the eager re-cull's, with a few entry bounds computed a trip
+//     instead of every entry every re-cull.  Every 256 epochs all entries
+//     are recomputed, so an epoch byte never aliases.
+//   - Pick ahead, stage asynchronously: entries do not change between the
+//     pick of the cluster under test and the next pick, so the next cluster
+//     is picked first and its 18 rows go into a second buffer with cp.async
+//     while this one is tested.  With PRETEST each thread keeps the box of
+//     its least entry in a slot, fetched with cp.async when that entry
+//     changes, so the picked cluster's box is usually there; the vote is
+//     taken after the settle, with the caps the next trip starts with, and
+//     only a viable cluster is staged.
+//   - The prologue tests a group of 32 consecutive clusters first (a box
+//     holding theirs, kernels/fused.py::group_boxes) and computes the
+//     entry bounds of a reachable group only, two groups an iteration, so
+//     that their device-memory loads overlap.
+
 // Each kernel agrees bit for bit with its plain PyTorch walk
 // (kernels/fused.py::walk_plain, prepick_plain; walk_common.cuh says how).
 
 #include "walk_common.cuh"
 
+#include <cstdint>
+
 namespace {
 
+// ---- walk_kernel's parts ---------------------------------------------------
+
+constexpr int kSlotWords = 9;  // a tail-mode ray: o, d, t bound, ignore ids
+
+struct Own {  // the entries a thread owns: ids tid, tid + threads, ...
+  float cv;   // least entry of the newest epoch (kInf: none)
+  int ck;     // its id (INT_MAX: none)
+  float sv;   // least entry of an older epoch
+  int sk;
+};
+
+struct Hit {  // a ray's best: t, cluster lane code, det-space u, v, det, tri
+  float t;
+  int code;
+  float u, v, det;
+  int tri;
+};
+
+__device__ __forceinline__ bool lex_less(float v, int k, float w, int l) {
+  return v < w || (v == w && k < l);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying cluster k's 18 geometry rows into ``geo``; every thread
+// issues its share (16-byte pieces when ``vec``).
+__device__ __forceinline__ void stage_async(const WalkArgs& a, int k,
+                                            float* geo, bool vec) {
+  const int C = a.csize;
+  const float* src = a.block + static_cast<size_t>(k) * kBlockRows * C;
+  if (vec) {
+    for (int e = threadIdx.x; e < kGeoRows * C / 4; e += blockDim.x) {
+      cp_async16(geo + 4 * e, src + 4 * e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kGeoRows * C; e += blockDim.x) {
+      cp_async4(geo + e, src + e);
+    }
+  }
+}
+
+// A float's bits as an unsigned key in the order of its value (-0 below
+// +0), and back.
+__device__ __forceinline__ unsigned ordered(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unordered(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The beam of the rays with m set, pruned at ``cap``'s block maximum, into
+// shared memory (fused.py::_tile_bounds_lm): the least and greatest origin
+// and direction of those rays per axis, by warp reductions of the values'
+// ordered keys.  Their zeros' signs may differ from a sequential min/max's;
+// no entry bound depends on them.  The caps are never NaN.  Every thread
+// calls it; it ends in a barrier.
+__device__ void beam_to_smem(const float o[3], const float d[3], bool m,
+                             float cap, Beam& beam, unsigned* red) {
+  unsigned v[13];
+  v[0] = __reduce_max_sync(0xffffffffu, ordered(cap));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[1 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? o[k] : kInf));
+    v[4 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? o[k] : -kInf));
+    v[7 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? d[k] : kInf));
+    v[10 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? d[k] : -kInf));
+  }
+  const int lane = threadIdx.x & 31;
+  __syncthreads();  // the previous reader of ``red`` and ``beam`` is done
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 13; ++i) red[i * 32 + (threadIdx.x >> 5)] = v[i];
+  }
+  const bool any = __syncthreads_or(m);
+  if (threadIdx.x < 32) {
+    const bool in = lane < static_cast<int>(blockDim.x >> 5);
+#pragma unroll
+    for (int i = 0; i < 13; ++i) {
+      const bool is_min = (i >= 1 && i < 4) || (i >= 7 && i < 10);
+      const unsigned x = in ? red[i * 32 + lane] : (is_min ? ~0u : 0u);
+      v[i] = is_min ? __reduce_min_sync(0xffffffffu, x)
+                    : __reduce_max_sync(0xffffffffu, x);
+    }
+    if (lane == 0) {
+      beam.wcap = unordered(v[0]);
+      beam.any = any;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        beam.o_min[k] = any ? unordered(v[1 + k]) : 0.f;
+        beam.o_max[k] = any ? unordered(v[4 + k]) : 0.f;
+        const float dmn = any ? unordered(v[7 + k]) : 1.f;
+        const float dmx = any ? unordered(v[10 + k]) : 1.f;
+        beam.d_min[k] = dmn;
+        beam.d_max[k] = dmx;
+        beam.inv_lo[k] = 1.0f / (dmn == 0.f ? 1.f : dmn);
+        beam.inv_hi[k] = 1.0f / (dmx == 0.f ? 1.f : dmx);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The warp's least (v, k) by entry, then id, in every lane.  Entries are
+// in [0, +inf] (a -0 entry equals +0), so with -0 made +0 their bits order
+// as their values: two warp reductions.
+__device__ __forceinline__ void warp_lexmin(float& v, int& k) {
+  const unsigned key = __float_as_uint(v + 0.f);
+  const unsigned m = __reduce_min_sync(0xffffffffu, key);
+  k = static_cast<int>(__reduce_min_sync(
+      0xffffffffu, key == m ? static_cast<unsigned>(k) : 0x7fffffffu));
+  v = __uint_as_float(m);
+}
+
+// Block-wide least (v, k) by entry, then id.  Every thread calls it, with
+// the other of two scratch buffers each call: a thread reads a buffer
+// before the barrier of the next call, which the next writer of the buffer
+// must pass first.
+__device__ Pick block_lexmin(float v, int k, float* red_f, int* red_i) {
+  warp_lexmin(v, k);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red_f[threadIdx.x >> 5] = v;
+    red_i[threadIdx.x >> 5] = k;
+  }
+  __syncthreads();
+  const bool in = lane < static_cast<int>(blockDim.x >> 5);
+  v = in ? red_f[lane] : kInf;
+  k = in ? red_i[lane] : INT_MAX;
+  warp_lexmin(v, k);
+  return {v, k};
+}
+
+// Block-wide least (v, k) and least (u, l), each by entry, then id; the
+// second comes back in ``second``.  Every thread calls it, with scratch as
+// block_lexmin's.
+__device__ Pick block_lexmin2(float v, int k, float u, int l, Pick& second,
+                              float* red_f, int* red_i) {
+  warp_lexmin(v, k);
+  warp_lexmin(u, l);
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x >> 5;
+  if (lane == 0) {
+    red_f[w0] = v;
+    red_i[w0] = k;
+    red_f[32 + w0] = u;
+    red_i[32 + w0] = l;
+  }
+  __syncthreads();
+  const bool in = lane < static_cast<int>(blockDim.x >> 5);
+  v = in ? red_f[lane] : kInf;
+  k = in ? red_i[lane] : INT_MAX;
+  u = in ? red_f[32 + lane] : kInf;
+  l = in ? red_i[32 + lane] : INT_MAX;
+  warp_lexmin(v, k);
+  warp_lexmin(u, l);
+  second = {u, l};
+  return {v, k};
+}
+
+// Rescan the thread's own entries: the least of the newest epoch and the
+// least older one (consumed and infeasible entries are neither).
+__device__ __forceinline__ Own rescan(const float* ent,
+                                      const unsigned char* ep, int ncg,
+                                      bool lazy, unsigned char epoch) {
+  Own w{kInf, INT_MAX, kInf, INT_MAX};
+#pragma unroll 4
+  for (int j = threadIdx.x; j < ncg; j += blockDim.x) {
+    const float e = ent[j];
+    if (!lazy || ep[j] == epoch) {
+      if (e < w.cv) {
+        w.cv = e;
+        w.ck = j;
+      }
+    } else if (e < w.sv) {
+      w.sv = e;
+      w.sk = j;
+    }
+  }
+  return w;
+}
+
+// Start copying cluster k's box (aabb rows 0-5) into ``bx``.
+__device__ __forceinline__ void fetch_box(const WalkArgs& a, int k,
+                                          float* bx) {
+#pragma unroll
+  for (int c = 0; c < 6; ++c) cp_async4(bx + c, a.aabb + c * a.ncg + k);
+}
+
+// The next pick: the least remaining entry (lowest id on equal entries),
+// consumed; every thread calls it.  Lazily re-culled entries at or below
+// the least entry of the newest epoch are recomputed under the newest beam
+// first, the least one of each thread a round.  The owner of the pick
+// refreshes its record later (refresh_owner).  PRETEST: a thread whose
+// least entry changes starts fetching that cluster's box into its slot.
+template <bool PRETEST>
+__device__ Pick pick_lazy(const WalkArgs& a, float* ent, unsigned char* ep,
+                          Own* own, float* boxes, bool lazy,
+                          unsigned char epoch, const Beam& beam,
+                          float* pick_f, int* pick_i, unsigned& parity) {
+  const int tid = threadIdx.x;
+  Pick p;
+  while (true) {
+    const Own w = own[tid];
+    float* red_f = pick_f + 64 * parity;
+    int* red_i = pick_i + 64 * parity;
+    parity ^= 1u;
+    if (!lazy) {
+      p = block_lexmin(w.cv, w.ck, red_f, red_i);
+      break;
+    }
+    Pick older;
+    p = block_lexmin2(w.cv, w.ck, w.sv, w.sk, older, red_f, red_i);
+    if (!lex_less(older.v, older.k, p.v, p.k)) break;
+    if (lex_less(w.sv, w.sk, p.v, p.k)) {
+      ent[w.sk] = entry_of(a.aabb, a.plane, a.ncg, w.sk, beam);
+      ep[w.sk] = epoch;
+      const Own n = rescan(ent, ep, a.ncg, true, epoch);
+      own[tid] = n;
+      if (PRETEST) {
+        if (n.ck != w.ck && n.ck != INT_MAX) {
+          // An earlier copy into the slot must land first.
+          cp_async_wait<0>();
+          fetch_box(a, n.ck, boxes + 6 * tid);
+        }
+        cp_async_commit();
+      }
+    }
+  }
+  if (p.v < kInf && p.k % static_cast<int>(blockDim.x) == tid) {
+    ent[p.k] = consumed();
+  }
+  return p;
+}
+
+// The owner of the consumed cluster k refreshes its record: its warp reads
+// the owner's entries one a lane and reduces them by entry, then id (the
+// order of the serial rescan).  PRETEST: the owner starts fetching its new
+// least entry's box, and every thread closes a copy group.
+template <bool PRETEST>
+__device__ __forceinline__ void refresh_owner(const WalkArgs& a, int k,
+                                              const float* ent,
+                                              const unsigned char* ep,
+                                              Own* own, float* boxes,
+                                              bool lazy,
+                                              unsigned char epoch) {
+  const int nt = blockDim.x;
+  const int t = k % nt;
+  if ((static_cast<int>(threadIdx.x) >> 5) == (t >> 5)) {
+    const int lane = threadIdx.x & 31;
+    Own w{kInf, INT_MAX, kInf, INT_MAX};
+    for (int j = t + nt * lane; j < a.ncg; j += 32 * nt) {
+      const float e = ent[j];
+      if (!lazy || ep[j] == epoch) {
+        if (e < w.cv) {
+          w.cv = e;
+          w.ck = j;
+        }
+      } else if (e < w.sv) {
+        w.sv = e;
+        w.sk = j;
+      }
+    }
+    warp_lexmin(w.cv, w.ck);
+    warp_lexmin(w.sv, w.sk);
+    if (lane == (t & 31)) {
+      own[t] = w;
+      if (PRETEST && w.ck != INT_MAX) fetch_box(a, w.ck, boxes + 6 * t);
+    }
+  }
+  if (PRETEST) cp_async_commit();
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s * a, a + b, a - b per component, as the scalar walk rounds them.
+__device__ __forceinline__ float4 mul4(float s, float4 a) {
+  return make_float4(s * a.x, s * a.y, s * a.z, s * a.w);
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// One pair's acceptance and, if it wins, the best's update (the scalar
+// walk's test, lane j of the staged block, code base + j).
+template <bool ANY_HIT, int CULL>
+__device__ __forceinline__ void take(const float* geo, int C, int j,
+                                     float det, float udet, float vdet,
+                                     float tdet, float tmax0, int itri,
+                                     int imesh, int base, Hit& h) {
+  const bool ok = ANY_HIT ? accept_within<CULL>(det, udet, vdet, tdet, tmax0)
+                          : accept<CULL>(det, udet, vdet, tdet);
+  if (!ok) return;
+  const int tri_id = __float_as_int(geo[16 * C + j]);
+  const int mesh_id = __float_as_int(geo[17 * C + j]);
+  if (tri_id == itri || mesh_id == imesh) return;
+  if (ANY_HIT) {
+    h.code = 0;
+    return;
+  }
+  const float dist = tdet / det;
+  if (dist < h.t) {
+    h.t = dist;
+    h.code = base + j;
+    h.u = udet;
+    h.v = vdet;
+    h.det = det;
+    h.tri = tri_id;
+  }
+}
+
+// Whether a pair with these det and u*det can pass its cull's sign tests
+// (the first conjuncts of accept<CULL>).
+template <int CULL>
+__device__ __forceinline__ bool u_ok(float det, float udet) {
+  if (CULL == 2) return udet >= 0.f && det > 0.f;
+  if (CULL == 1) return udet <= 0.f && det < 0.f;
+  const float s = det < 0.f ? -1.f : 1.f;
+  return udet * s >= 0.f && det * s > 0.f;
+}
+
+// Lanes j0 to j0 + 3 of the staged block, in lane order; rows read as float4.
+// EARLY (the warp's lanes all run the same lanes): when no pair of the warp
+// can pass the u test, v, t and the acceptance are skipped.
+template <bool ANY_HIT, int CULL, bool EARLY>
+__device__ __forceinline__ void test4(const float* geo, int C, int j0,
+                                      const float o[3], const float d[3],
+                                      const float w[3], float tmax0, int itri,
+                                      int imesh, int base, Hit& h) {
+  const float* g = geo + j0;
+  float4 det, on;
+  {
+    const float4 nx = ld4(g), ny = ld4(g + C), nz = ld4(g + 2 * C);
+    det = add4(add4(mul4(d[0], nx), mul4(d[1], ny)), mul4(d[2], nz));
+    on = add4(add4(mul4(o[0], nx), mul4(o[1], ny)), mul4(o[2], nz));
+  }
+  float4 u = mul4(w[0], ld4(g + 6 * C));
+  u = add4(u, mul4(w[1], ld4(g + 7 * C)));
+  u = add4(u, mul4(w[2], ld4(g + 8 * C)));
+  u = add4(u, mul4(d[0], ld4(g + 3 * C)));
+  u = add4(u, mul4(d[1], ld4(g + 4 * C)));
+  u = add4(u, mul4(d[2], ld4(g + 5 * C)));
+  if (EARLY) {
+    const bool need = u_ok<CULL>(det.x, u.x) || u_ok<CULL>(det.y, u.y) ||
+                      u_ok<CULL>(det.z, u.z) || u_ok<CULL>(det.w, u.w);
+    if (!__any_sync(0xffffffffu, need)) return;
+  }
+  const float4 tdet = sub4(ld4(g + 15 * C), on);
+  float4 v = mul4(w[0], ld4(g + 12 * C));
+  v = add4(v, mul4(w[1], ld4(g + 13 * C)));
+  v = add4(v, mul4(w[2], ld4(g + 14 * C)));
+  v = add4(v, mul4(d[0], ld4(g + 9 * C)));
+  v = add4(v, mul4(d[1], ld4(g + 10 * C)));
+  v = add4(v, mul4(d[2], ld4(g + 11 * C)));
+  take<ANY_HIT, CULL>(geo, C, j0, det.x, u.x, v.x, tdet.x, tmax0, itri, imesh,
+                      base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 1, det.y, u.y, v.y, tdet.y, tmax0, itri,
+                      imesh, base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 2, det.z, u.z, v.z, tdet.z, tmax0, itri,
+                      imesh, base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 3, det.w, u.w, v.w, tdet.w, tmax0, itri,
+                      imesh, base, h);
+}
+
+// Lane j of the staged block, scalar rows.
+template <bool ANY_HIT, int CULL>
+__device__ __forceinline__ void test1(const float* geo, int C, int j,
+                                      const float o[3], const float d[3],
+                                      const float w[3], float tmax0, int itri,
+                                      int imesh, int base, Hit& h) {
+  const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
+  const float det = d[0] * nx + d[1] * ny + d[2] * nz;
+  const float udet = w[0] * geo[6 * C + j] + w[1] * geo[7 * C + j] +
+                     w[2] * geo[8 * C + j] + d[0] * geo[3 * C + j] +
+                     d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
+  const float vdet = w[0] * geo[12 * C + j] + w[1] * geo[13 * C + j] +
+                     w[2] * geo[14 * C + j] + d[0] * geo[9 * C + j] +
+                     d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
+  const float tdet = geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
+  take<ANY_HIT, CULL>(geo, C, j, det, udet, vdet, tdet, tmax0, itri, imesh,
+                      base, h);
+}
+
+// Lanes first, first + step, ... of the staged block (in 4-lane groups when
+// ``vec``: groups first, first + step, ...), in ascending order.  EARLY:
+// test4's early-out (every lane of the warp runs the same lanes).
+template <bool ANY_HIT, int CULL, bool EARLY>
+__device__ __forceinline__ void test_lanes(const float* geo, int C, bool vec,
+                                           int first, int step,
+                                           const float o[3], const float d[3],
+                                           float tmax0, int itri, int imesh,
+                                           int base, Hit& h) {
+  const float w[3] = {d[1] * o[2] - d[2] * o[1], d[2] * o[0] - d[0] * o[2],
+                      d[0] * o[1] - d[1] * o[0]};
+  if (vec) {
+#pragma unroll 1
+    for (int q = first; q < C / 4; q += step) {
+      test4<ANY_HIT, CULL, EARLY>(geo, C, 4 * q, o, d, w, tmax0, itri, imesh,
+                                  base, h);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = first; j < C; j += step) {
+      test1<ANY_HIT, CULL>(geo, C, j, o, d, w, tmax0, itri, imesh, base, h);
+    }
+  }
+}
+
+// The pretest vote on the box in ``box`` (fused.py::_slab_viable).
+__device__ __forceinline__ bool pretest_vote(const float* box, float margin,
+                                             const float o[3],
+                                             const float d[3], float cap_r) {
+  float s_en = -kInf, s_ex = kInf;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float inv = 1.0f / (d[k] == 0.f ? kTinyDir : d[k]);
+    const float t1 = (box[k] - margin - o[k]) * inv;
+    const float t2 = (box[3 + k] + margin - o[k]) * inv;
+    s_en = max_nan(s_en, min_nan(t1, t2));
+    s_ex = min_nan(s_ex, max_nan(t1, t2));
+  }
+  return __syncthreads_or(s_en <= s_ex && s_ex >= 0.f && s_en < cap_r);
+}
+
+// Dynamic shared memory of walk_kernel, in bytes (kernels/fused.py::
+// _smem_bytes): the entry table (padded to 4 floats), two staged blocks,
+// the tail-mode slots of half the block, each thread's Own record and box
+// slot; with the re-cull, an epoch byte per entry.
+size_t walk_smem_bytes(const WalkArgs& a) {
+  const size_t nt = (a.ts + 31) / 32 * 32;
+  const size_t ncg_pad = (static_cast<size_t>(a.ncg) + 3) / 4 * 4;
+  return sizeof(float) * (ncg_pad + 2 * static_cast<size_t>(kGeoRows) * a.csize +
+                          nt / 2 * kSlotWords + 10 * nt) +
+         (a.recull_every > 0 ? static_cast<size_t>(a.ncg) : 0);
+}
+
+// ---- walk_kernel -----------------------------------------------------------
+
 // At most 80 registers a thread (__maxnreg__, CUDA 12.4 and later): three
-// blocks of 256 threads then fit on an SM.  Uncapped, the nearest
-// instantiation takes 86 and only two fit, 8% slower on the bench frame;
-// capped it spills 12 bytes and times like the uncapped walk before the trip
-// budget and the resolved flag were added (walk_ab.py, H100).
+// blocks of 256 threads then fit on an SM (at 86 the walk ran 16-25%
+// slower, walk_ab.py on an H100).
 template <bool ANY_HIT, int CULL, bool PRETEST>
 __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
-  extern __shared__ float smem[];
-  float* ent = smem;           // (ncg,) remaining entry bounds
-  float* geo = smem + a.ncg;   // (18, csize) staged cluster block
-  __shared__ float red_f[32];
+  extern __shared__ __align__(16) float smem[];
+  const int C = a.csize;
+  const int nt = blockDim.x;
+  float* ent = smem;                                   // (ncg,) entries
+  float* geo0 = smem + (a.ncg + 3) / 4 * 4;            // 2 x (18, C) blocks
+  float* slots = geo0 + 2 * kGeoRows * C;              // (nt / 2, 9)
+  Own* own = reinterpret_cast<Own*>(slots + nt / 2 * kSlotWords);  // (nt,)
+  float* boxes = reinterpret_cast<float*>(own + nt);   // (nt, 6) box slots
+  unsigned char* ep = reinterpret_cast<unsigned char*>(boxes + 6 * nt);
+  __shared__ float red_f[13 * 32];
   __shared__ int red_i[32];
+  __shared__ float pick_f[2 * 64];  // the picks' two scratch buffers
+  __shared__ int pick_i[2 * 64];
+  __shared__ Beam beam;
+  unsigned parity = 0;
 
   const int tid = threadIdx.x;
   const bool active = tid < a.ts;
   const size_t r = static_cast<size_t>(blockIdx.x) * a.ts + tid;
+  const bool lazy = a.recull_every > 0;
+  const bool vec = C % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.block) & 15) == 0;
   const float qnan = __int_as_float(0x7fc00000);
 
   float o[3], d[3];
@@ -142,139 +652,283 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
 
   // The tile's beam over its finite rays (fused.py::_tile_bounds_lm),
   // pruned at the largest bound of the unresolved rays, so a dead ray's NaN
-  // bound cannot poison its tile.
+  // bound cannot poison its tile; then every entry and the thread's least
+  // one.  A warp takes a group of 32 consecutive clusters (its lanes are
+  // the groups' owners), two groups an iteration; a group whose box the
+  // beam cannot reach gets +inf entries without a look at its clusters:
+  // their slab intervals lie inside the group's, so each is infeasible too.
+  beam_to_smem(o, d, finite, res ? -kInf : tmax0, beam,
+               reinterpret_cast<unsigned*>(red_f));
   {
-    const float wcap = block_reduce(res ? -kInf : tmax0, MaxNanOp(), red_f);
-    const Beam b = make_beam(o, d, finite, wcap, red_f);
-    for (int j = tid; j < a.ncg; j += blockDim.x) {
-      ent[j] = entry_of(a.aabb, a.plane, a.ncg, j, b);
+    // The beam in registers: the bounds below would otherwise read it
+    // from shared memory, behind the other blocks' pair-test loads.
+    const Beam bm = beam;
+    float cv = kInf;
+    int ck = INT_MAX;
+    const int lane = tid & 31, nw = nt >> 5, ng = (a.ncg + 31) >> 5;
+    for (int g = tid >> 5; g < ng; g += 2 * nw) {
+      const int g1 = g + nw < ng ? g + nw : g;
+      const bool r0 =
+          entry_bound<false>(a.group_aabb, nullptr, ng, g, bm) < kInf;
+      const bool r1 =
+          entry_bound<false>(a.group_aabb, nullptr, ng, g1, bm) < kInf;
+      const int j0 = 32 * g + lane;
+      const int j1 = g1 == g ? a.ncg : 32 * g1 + lane;
+      const float e0 = r0 && j0 < a.ncg
+                           ? entry_of(a.aabb, a.plane, a.ncg, j0, bm)
+                           : kInf;
+      const float e1 = r1 && j1 < a.ncg
+                           ? entry_of(a.aabb, a.plane, a.ncg, j1, bm)
+                           : kInf;
+      if (j0 < a.ncg) {
+        ent[j0] = e0;
+        if (lazy) ep[j0] = 0;
+        if (e0 < cv) {
+          cv = e0;
+          ck = j0;
+        }
+      }
+      if (j1 < a.ncg) {
+        ent[j1] = e1;
+        if (lazy) ep[j1] = 0;
+        if (e1 < cv) {
+          cv = e1;
+          ck = j1;
+        }
+      }
     }
+    own[tid] = {cv, ck, kInf, INT_MAX};
   }
-  __syncthreads();
+  unsigned epoch = 0;
 
   // Per-ray state (fused.py::_walk_tiles).
-  float bt = tmax0;
-  int bc = -1;
-  float bu = 0.f, bv = 0.f, bd = 1.f;
-  int bi = -1;
-  const float wx = d[1] * o[2] - d[2] * o[1];
-  const float wy = d[2] * o[0] - d[0] * o[2];
-  const float wz = d[0] * o[1] - d[1] * o[0];
-  const int C = a.csize;
-  // Slab reciprocals of the pretest (fused.py:543-544).
-  float inv_d[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    inv_d[k] = PRETEST ? 1.0f / (d[k] == 0.f ? kTinyDir : d[k]) : 0.f;
-  }
-  int trips = 0, tests = 0, ray_tests = 0;
+  Hit best{tmax0, -1, 0.f, 0.f, 1.f, -1};
+  // Tested clusters and ray tests, kept by thread 0.
+  __shared__ int counts[2];
+  if (tid == 0) counts[0] = counts[1] = 0;
+  int trips = 0;
 
-  Pick cur = pick_next(ent, a.ncg, red_f, red_i);
+  if (PRETEST) {
+    if (own[tid].ck != INT_MAX) fetch_box(a, own[tid].ck, boxes + 6 * tid);
+    cp_async_commit();
+  }
+  Pick cur = pick_lazy<PRETEST>(a, ent, ep, own, boxes, lazy, 0, beam,
+                                pick_f, pick_i, parity);
   // No feasible cluster: nothing to hit, every ray is proven.
   if (!(cur.v < kInf)) res = true;
+  bool viable = cur.v < kInf;
+  if (PRETEST && viable) {
+    cp_async_wait<0>();
+    __syncthreads();
+    viable = pretest_vote(boxes + 6 * (cur.k % nt), margin, o, d,
+                          res ? -kInf : min_nan(best.t, tmax0));
+  }
+  int b = 0;  // the buffer of the cluster under test
+  if (viable) stage_async(a, cur.k, geo0, vec);
+  cp_async_commit();
+  if (cur.v < kInf) {
+    refresh_owner<PRETEST>(a, cur.k, ent, ep, own, boxes, lazy, 0);
+  }
   while (cur.v < kInf) {
     ++trips;
-    bool viable = true;
-    if (PRETEST) {
-      // Can this ray reach the cluster's box before its cap (slab_viable)?
-      const float cap_r = res ? -kInf : min_nan(bt, tmax0);
-      float s_en = -kInf, s_ex = kInf;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float mn = a.aabb[k * a.ncg + cur.k] - margin;
-        const float mx = a.aabb[(3 + k) * a.ncg + cur.k] + margin;
-        const float t1 = (mn - o[k]) * inv_d[k];
-        const float t2 = (mx - o[k]) * inv_d[k];
-        s_en = max_nan(s_en, min_nan(t1, t2));
-        s_ex = min_nan(s_ex, max_nan(t1, t2));
-      }
-      viable = __syncthreads_or(s_en <= s_ex && s_ex >= 0.f && s_en < cap_r);
+    // Pick ahead; without the pretest, stage the next cluster's rows now.
+    const Pick nxt = pick_lazy<PRETEST>(
+        a, ent, ep, own, boxes, lazy, static_cast<unsigned char>(epoch), beam,
+        pick_f, pick_i, parity);
+    float* geo = geo0 + b * kGeoRows * C;
+    float* geo_next = geo0 + (b ^ 1) * kGeoRows * C;
+    if (!PRETEST) {
+      if (nxt.v < kInf) stage_async(a, nxt.k, geo_next, vec);
+      cp_async_commit();
     }
     if (viable) {
-      ++tests;
-      const float* src =
-          a.block + static_cast<size_t>(cur.k) * kBlockRows * C;
-      for (int e = tid; e < kGeoRows * C; e += blockDim.x) geo[e] = src[e];
-      ray_tests += __syncthreads_count(!res);
-      for (int j = 0; j < C; ++j) {
-        const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
-        const float det = d[0] * nx + d[1] * ny + d[2] * nz;
-        const float udet = wx * geo[6 * C + j] + wy * geo[7 * C + j] +
-                           wz * geo[8 * C + j] + d[0] * geo[3 * C + j] +
-                           d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
-        const float vdet = wx * geo[12 * C + j] + wy * geo[13 * C + j] +
-                           wz * geo[14 * C + j] + d[0] * geo[9 * C + j] +
-                           d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
-        const float tdet =
-            geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
-        const int tri_id = __float_as_int(geo[16 * C + j]);
-        const int mesh_id = __float_as_int(geo[17 * C + j]);
-        const bool keep = tri_id != itri && mesh_id != imesh;
-        if (ANY_HIT) {
-          if (keep && accept_within<CULL>(det, udet, vdet, tdet, tmax0)) {
-            bc = 0;
+      cp_async_wait<1>();
+      const int U = __syncthreads_count(!res);
+      if (tid == 0) {
+        ++counts[0];
+        counts[1] += U;
+      }
+      const int base = cur.k * C;
+      if (2 * U > nt) {
+        // Every thread tests its own ray against every lane.
+        test_lanes<ANY_HIT, CULL, true>(geo, C, vec, 0, 1, o, d, tmax0,
+                                        itri, imesh, base, best);
+      } else if (U > 0) {
+        // Tail: the U unresolved rays' tests spread over G threads each.
+        int G = 32;
+        while (U * G > nt) G >>= 1;
+        const unsigned bal = __ballot_sync(0xffffffffu, !res);
+        const int lane = tid & 31, warp = tid >> 5;
+        if (lane == 0) red_i[warp] = __popc(bal);
+        __syncthreads();
+        int slot = __popc(bal & ((1u << lane) - 1));
+        for (int w = 0; w < warp; ++w) slot += red_i[w];
+        if (!res) {
+          float* sl = slots + slot * kSlotWords;
+          sl[0] = o[0];
+          sl[1] = o[1];
+          sl[2] = o[2];
+          sl[3] = d[0];
+          sl[4] = d[1];
+          sl[5] = d[2];
+          sl[6] = tmax0;
+          sl[7] = __int_as_float(itri);
+          sl[8] = __int_as_float(imesh);
+        }
+        __syncthreads();
+        const int s = tid / G, g = tid % G;
+        Hit lb{kInf, -1, 0.f, 0.f, 1.f, -1};
+        float* sl = slots + s * kSlotWords;
+        if (s < U) {
+          const float so[3] = {sl[0], sl[1], sl[2]};
+          const float sd[3] = {sl[3], sl[4], sl[5]};
+          test_lanes<ANY_HIT, CULL, false>(geo, C, vec, g, G, so, sd, sl[6],
+                                    __float_as_int(sl[7]),
+                                    __float_as_int(sl[8]), 0, lb);
+        }
+        // The group's least (t, lane); any-hit: whether any lane hit.
+        for (int off = G >> 1; off > 0; off >>= 1) {
+          const float ot = __shfl_xor_sync(0xffffffffu, lb.t, off);
+          const int oc = __shfl_xor_sync(0xffffffffu, lb.code, off);
+          if (ANY_HIT) {
+            lb.code = lb.code > oc ? lb.code : oc;
+          } else {
+            const float ou = __shfl_xor_sync(0xffffffffu, lb.u, off);
+            const float ov = __shfl_xor_sync(0xffffffffu, lb.v, off);
+            const float odet = __shfl_xor_sync(0xffffffffu, lb.det, off);
+            const int otri = __shfl_xor_sync(0xffffffffu, lb.tri, off);
+            // Lanes that hit nothing carry code -1: rank them last.
+            const unsigned mine = static_cast<unsigned>(lb.code);
+            const unsigned theirs = static_cast<unsigned>(oc);
+            if (ot < lb.t || (ot == lb.t && theirs < mine)) {
+              lb = {ot, oc, ou, ov, odet, otri};
+            }
           }
-        } else {
-          const float dist = (keep && accept<CULL>(det, udet, vdet, tdet))
-                                 ? tdet / det
-                                 : kInf;
-          if (dist < bt) {
-            bt = dist;
-            bc = cur.k * C + j;
-            bu = udet;
-            bv = vdet;
-            bd = det;
-            bi = tri_id;
+        }
+        if (g == 0 && s < U) {
+          sl[0] = lb.t;
+          sl[1] = __int_as_float(lb.code);
+          sl[2] = lb.u;
+          sl[3] = lb.v;
+          sl[4] = lb.det;
+          sl[5] = __int_as_float(lb.tri);
+        }
+        __syncthreads();
+        if (!res) {
+          const float* mine = slots + slot * kSlotWords;
+          const int code = __float_as_int(mine[1]);
+          if (ANY_HIT) {
+            if (code >= 0) best.code = 0;
+          } else if (mine[0] < best.t) {
+            best = {mine[0], base + code, mine[2], mine[3], mine[4],
+                    __float_as_int(mine[5])};
           }
         }
       }
     }
-    const Pick nxt = pick_next(ent, a.ncg, red_f, red_i);
-    res = res || (ANY_HIT ? (bc >= 0 || tmax0 <= nxt.v) : (bt <= nxt.v));
+    res = res || (ANY_HIT ? (best.code >= 0 || tmax0 <= nxt.v)
+                          : (best.t <= nxt.v));
+    // The next cluster's box, in its owner's slot, lands before the vote.
+    if (PRETEST && nxt.v < kInf && nxt.k % nt == tid) cp_async_wait<0>();
     if (__syncthreads_and(res)) break;
     // The trip budget (fused.py:690-697): the rays not yet resolved keep
     // their best as a candidate.
     if (a.max_trips > 0 && trips >= a.max_trips) break;
-    if (a.recull_every > 0 && trips % a.recull_every == 0 && nxt.v < kInf) {
-      // Re-cull from the unresolved rays' beam (fused.py:668-681).
-      const float wcap =
-          block_reduce(res ? -kInf : min_nan(bt, tmax0), MaxNanOp(), red_f);
-      const Beam b = make_beam(o, d, finite && !res, wcap, red_f);
-      for (int j = tid; j < a.ncg; j += blockDim.x) {
-        if (ent[j] != consumed()) {
-          ent[j] = entry_of(a.aabb, a.plane, a.ncg, j, b);
+    bool nviable = nxt.v < kInf;
+    if (PRETEST && nviable) {
+      // The vote, with the caps the next trip starts with.
+      nviable = pretest_vote(boxes + 6 * (nxt.k % nt), margin, o, d,
+                             res ? -kInf : min_nan(best.t, tmax0));
+      if (nviable) stage_async(a, nxt.k, geo_next, vec);
+      cp_async_commit();
+    }
+    if (nxt.v < kInf) {
+      refresh_owner<PRETEST>(a, nxt.k, ent, ep, own, boxes, lazy,
+                             static_cast<unsigned char>(epoch));
+    }
+    if (lazy && trips % a.recull_every == 0 && nxt.v < kInf) {
+      // Re-cull from the unresolved rays' beam (fused.py:668-681): a new
+      // epoch; the entries are recomputed when they reach the front.
+      beam_to_smem(o, d, finite && !res, res ? -kInf : min_nan(best.t, tmax0),
+                   beam, reinterpret_cast<unsigned*>(red_f));
+      ++epoch;
+      const unsigned char e8 = static_cast<unsigned char>(epoch);
+      Own w = own[tid];
+      if (e8 == 0) {
+        // Every 256 epochs, every live entry anew.
+        w = {kInf, INT_MAX, kInf, INT_MAX};
+        for (int j = tid; j < a.ncg; j += nt) {
+          float e = ent[j];
+          if (e < kInf) {
+            e = entry_of(a.aabb, a.plane, a.ncg, j, beam);
+            ent[j] = e;
+          }
+          ep[j] = 0;
+          if (e < w.cv) {
+            w.cv = e;
+            w.ck = j;
+          }
         }
+        if (PRETEST) {
+          cp_async_wait<0>();
+          if (w.ck != INT_MAX) fetch_box(a, w.ck, boxes + 6 * tid);
+          cp_async_commit();
+        }
+      } else {
+        if (lex_less(w.cv, w.ck, w.sv, w.sk)) {
+          w.sv = w.cv;
+          w.sk = w.ck;
+        }
+        // Every entry is older now: each thread's least one is recomputed
+        // at once, as the next pick's first round would.
+        if (w.sv < kInf) {
+          const int k = w.sk;
+          ent[k] = entry_of(a.aabb, a.plane, a.ncg, k, beam);
+          ep[k] = e8;
+          w = rescan(ent, ep, a.ncg, true, e8);
+          if (PRETEST) {
+            cp_async_wait<0>();
+            if (w.ck != INT_MAX) fetch_box(a, w.ck, boxes + 6 * tid);
+          }
+        } else {
+          w.cv = kInf;
+          w.ck = INT_MAX;
+        }
+        if (PRETEST) cp_async_commit();
       }
-      __syncthreads();
+      own[tid] = w;
     }
     cur = nxt;
+    viable = nviable;
+    b ^= 1;
   }
+  cp_async_wait<0>();
 
   if (tid == 0) {
     a.out_iters[blockIdx.x] = trips;
-    a.out_tests[blockIdx.x] = tests;
-    a.out_ray_tests[blockIdx.x] = ray_tests;
+    a.out_tests[blockIdx.x] = counts[0];
+    a.out_ray_tests[blockIdx.x] = counts[1];
   }
   if (!active) return;
   a.out_res[r] = res ? 1 : 0;
   if (ANY_HIT) {
-    a.out_t[r] = bc >= 0 ? 0.f : bt;
-    a.out_code[r] = bc;
+    a.out_t[r] = best.code >= 0 ? 0.f : best.t;
+    a.out_code[r] = best.code;
     return;
   }
-  const bool hit = bc >= 0;
-  const float safe_det = hit ? bd : 1.f;
-  a.out_t[r] = bt;
-  a.out_code[r] = bc;
-  a.out_u[r] = bu / safe_det;
-  a.out_v[r] = bv / safe_det;
-  a.out_tri[r] = bi;
+  const bool hit = best.code >= 0;
+  const float safe_det = hit ? best.det : 1.f;
+  a.out_t[r] = best.t;
+  a.out_code[r] = best.code;
+  a.out_u[r] = best.u / safe_det;
+  a.out_v[r] = best.v / safe_det;
+  a.out_tri[r] = best.tri;
   if (a.out_rows == nullptr) return;
   // The winner's shade row straight from tri_shade, channel 31 (mesh id
   // stored as int32 bits) written as a float value; misses get zeros.
   float* row = a.out_rows + r * kShadeCols;
   if (hit) {
-    const float* srow = a.tri_shade + static_cast<size_t>(bi) * kShadeCols;
+    const float* srow = a.tri_shade + static_cast<size_t>(best.tri) * kShadeCols;
     for (int c = 0; c < kShadeCols - 1; ++c) row[c] = srow[c];
     row[kShadeCols - 1] =
         static_cast<float>(__float_as_int(srow[kShadeCols - 1]));
@@ -344,18 +998,19 @@ __global__ void prepick_kernel(WalkArgs a) {
   write_out<ANY_HIT>(a, r, active, best, res, trips, trips, ray_tests);
 }
 
-// Dynamic shared memory of a block: the entry table and one staged cluster
-// block, and for the prepick walk F picks (entry and id).
-size_t smem_bytes(const WalkArgs& a, bool prepick) {
+// Dynamic shared memory of a prepick block: the entry table, one staged
+// cluster block and F picks (entry and id).
+size_t prepick_smem_bytes(const WalkArgs& a) {
   return sizeof(float) * (static_cast<size_t>(a.ncg) +
                           static_cast<size_t>(kGeoRows) * a.csize) +
-         (prepick ? 8 * static_cast<size_t>(a.picks) : 0);
+         8 * static_cast<size_t>(a.picks);
 }
 
 template <typename Kernel>
 cudaError_t launch_walk(Kernel kernel, const WalkArgs& a, int n_rays,
                         bool prepick, cudaStream_t stream) {
-  return launch(kernel, a, n_rays, smem_bytes(a, prepick), stream);
+  return launch(kernel, a, n_rays,
+                prepick ? prepick_smem_bytes(a) : walk_smem_bytes(a), stream);
 }
 
 template <bool ANY_HIT, bool PRETEST>
@@ -395,13 +1050,15 @@ extern "C" int rt_nearest_hit(
     const float* origin, const float* direction, const float* tmax,
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
     const float* root, const float* aabb, const float* plane,
-    const float* block, int ncg, int csize, const float* tri_shade, int cull,
+    const float* group_aabb, const float* block, int ncg, int csize,
+    const float* tri_shade, int cull,
     int pretest, int recull_every, int max_trips, float* out_t, int* out_code,
     float* out_u, float* out_v, int* out_tri, float* out_rows, int* out_res,
     int* out_iters, int* out_tests, int* out_ray_tests, void* stream) {
   WalkArgs a = walk_args(origin, direction, tmax, ignore_tri, ignore_mesh,
                          ts, root, aabb, block, ncg, csize);
   a.plane = plane;
+  a.group_aabb = group_aabb;
   a.recull_every = recull_every;
   a.max_trips = max_trips;
   a.tri_shade = tri_shade;
@@ -419,13 +1076,15 @@ extern "C" int rt_any_hit(
     const float* origin, const float* direction, const float* tmax,
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
     const float* root, const float* aabb, const float* plane,
-    const float* block, int ncg, int csize, int cull, int pretest,
+    const float* group_aabb, const float* block, int ncg, int csize,
+    int cull, int pretest,
     int recull_every, int max_trips, float* out_t, int* out_code,
     int* out_res, int* out_iters, int* out_tests, int* out_ray_tests,
     void* stream) {
   WalkArgs a = walk_args(origin, direction, tmax, ignore_tri, ignore_mesh,
                          ts, root, aabb, block, ncg, csize);
   a.plane = plane;
+  a.group_aabb = group_aabb;
   a.recull_every = recull_every;
   a.max_trips = max_trips;
   set_outputs(a, out_t, out_code, out_res, out_iters, out_tests,

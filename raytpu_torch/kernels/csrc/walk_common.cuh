@@ -33,6 +33,8 @@ struct WalkArgs {
   const float* aabb;       // (6, ncg) block boxes
   const float* plane;      // (5, ncg) or null (slab interval alone);
                            // unused by the prepick walk
+  const float* group_aabb; // walk_kernel only: (6, ceil(ncg / 32)) boxes
+                           // of 32 consecutive clusters
   const float* block;      // (ncg, 24, csize)
   int ncg;
   int csize;
@@ -275,8 +277,7 @@ __device__ Pick pick_next(float* ent, int ncg, float* red_f, int* red_i) {
   return {v, k};
 }
 
-// The steps of the prepick and group walks.  walk_kernel carries the same
-// steps inline, in the form that keeps it within its register budget (see
+// The steps of the prepick and group walks (walk_kernel has its own, see
 // its note).
 
 // One thread's ray (fused.py::_walk_tiles prologue).

@@ -980,29 +980,60 @@ def prepick_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
 # 32-bit word), and the room of its beam in shared memory, in bytes.
 MAX_CHUNK = 8
 _BEAM_BYTES = 128
+# Words of shared memory for each ray whose tests the classic walk spreads
+# over several threads (csrc/walk.cu ``kSlotWords``).
+_SLOT_WORDS = 9
 
 
 def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
-                subk: int = 1, mxu: Optional[str] = None) -> int:
-    """Dynamic shared memory of one walk block: the entry (key) table and
-    one staged cluster block and, for the prepick walk, its picks (entry
-    and id).  ``chunk_k`` > 0: the group kernel's, with ``chunk_k`` staged
-    blocks, the group's keys and ids and, ``subk`` > 1, their sibling
-    entries and the beam (csrc/subwalk.cu ``group_smem_bytes``).  ``mxu``:
-    the tensor-core walk's at that precision, whose staged block is 8
+                subk: int = 1, mxu: Optional[str] = None, tile: int = 256,
+                recull: bool = False) -> int:
+    """Dynamic shared memory of one walk block.  The classic walk's
+    (csrc/walk.cu ``walk_smem_bytes``): the entry table (padded to 4
+    floats), two staged cluster blocks, 9 words for each of half the
+    block's threads (the spread tests of few unresolved rays), 10 words
+    for each thread (the least entries it owns, and the box of the least
+    one for the pretest); with the re-cull (``recull``), an epoch byte per
+    entry.  A consumed cluster's
+    entry is marked +inf in place (``CONSUMED``).  ``picks``: the prepick
+    walk's, the entry table, one staged block and the picks (entry and id).
+    ``chunk_k`` > 0: the group kernel's, with ``chunk_k`` staged blocks,
+    the group's keys and ids and, ``subk`` > 1, their sibling entries and
+    the beam (csrc/subwalk.cu ``group_smem_bytes``).  ``mxu``: the
+    tensor-core walk's at that precision, whose staged block is 8
     coefficient rows of each of its 4 column blocks, each row padded by 8
     floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C ids
-    (csrc/mxuwalk.cu ``mxu_smem_bytes``).  The re-cull needs no table of
-    its own: a consumed cluster's entry is marked +inf in place
-    (``CONSUMED``)."""
+    (csrc/mxuwalk.cu ``mxu_smem_bytes``)."""
     if mxu:
         parts = 2 if mxu == "highest" else 1
         staged = 8 * (4 * csize + 8) * parts + 2 * csize
         return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
-    if not chunk_k:
+    if picks:
         return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
+    if not chunk_k:
+        nt = (tile + 31) // 32 * 32
+        words = (-(-ncg // 4) * 4 + 2 * GEO_ROWS * csize
+                 + nt // 2 * _SLOT_WORDS + 10 * nt)
+        return 4 * words + (ncg if recull else 0)
     n = 4 * (ncg + chunk_k * GEO_ROWS * csize) + 8 * chunk_k
     return n + (4 * chunk_k * subk + _BEAM_BYTES if subk > 1 else 0)
+
+
+def group_boxes(aabb):
+    """The (6, ceil(n / 32)) boxes of 32 consecutive clusters of the
+    (6, n) box table: the least mins and greatest maxes of theirs (a NaN
+    box, infeasible for every beam, left out).  The classic walk kernel
+    gives a tile's clusters no look whose group box its beam cannot
+    reach."""
+    pad = -aabb.shape[1] % 32
+    inf = float("inf")
+    lo, hi = aabb[:3], aabb[3:]
+    lo = torch.nn.functional.pad(torch.where(lo.isnan(), inf, lo), (0, pad),
+                                 value=inf)
+    hi = torch.nn.functional.pad(torch.where(hi.isnan(), -inf, hi),
+                                 (0, pad), value=-inf)
+    return torch.cat([lo.view(3, -1, 32).amin(2),
+                      hi.view(3, -1, 32).amax(2)]).contiguous()
 
 
 def _check(name, x, dev, dtype, shape):
@@ -1079,7 +1110,8 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
     for name, x, dtype, shape in tables:
         _check(name, x, q.origin.device, dtype, shape)
     mxu = spec.mxu if spec is not None else None
-    need = _smem_bytes(ncg, csize, picks or 0, chunk_k, subk, mxu)
+    need = _smem_bytes(ncg, csize, picks or 0, chunk_k, subk, mxu, ts,
+                       recull_every > 0)
     if need > SMEM_LIMIT:
         what = (f" and {picks} picks" if picks else
                 f" and {chunk_k} picks per trip" if chunk_k else "")
@@ -1158,8 +1190,9 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
                 *counts)
         fn = "rt_subwalk_" + kind
     else:
-        args = (*rays, plane, p(block), ncg, csize, *shade, *shape,
-                p(out["t"]), p(out["code"]), *winner, *counts)
+        groups = group_boxes(clusters["aabb"])
+        args = (*rays, plane, p(groups), p(block), ncg, csize, *shade,
+                *shape, p(out["t"]), p(out["code"]), *winner, *counts)
         fn = "rt_" + ("any_hit" if any_hit else "nearest_hit")
     _launch(kernel_name(any_hit, spec.pretest, spec.max_trips > 0, sub=sub,
                         gate=spec.gate, chunk=spec.chunk_k > 1,

@@ -15,8 +15,8 @@ nearest-occluder queries with transparent-occluder attenuation, recursive
 reflection and Snell refraction.  Every query goes through
 ``nearest_hit``'s dispatch (``cfg.intersector``; ``AUTO`` sweeps a bake of
 up to ``cfg.brute_force_max_tris`` triangles by brute force, as the JAX
-package does, and walks larger ones with the slab pretest and a re-cull
-every 6 trips).
+package does; larger ones take the walk, with the slab pretest and a
+re-cull every 6 trips, on the card and the tiled query on the CPU).
 """
 
 from __future__ import annotations

@@ -275,6 +275,29 @@ def test_pack_query_pads_whole_tiles():
     assert small.tile == 5 and small.origin.shape == (5, 3)
 
 
+def test_group_boxes_hold_their_clusters():
+    """The classic walk kernel's group pre-cull (csrc/walk.cu): each box of
+    32 consecutive clusters is the least min and greatest max of theirs,
+    a NaN box left out and infinite bounds kept.  The block's shared
+    memory grows by an epoch byte per entry with the re-cull, and three
+    blocks of the bench bake (7,811 clusters of 128) still fit an SM's
+    228 KB with their static shared memory and reserved KB (~3 KB)."""
+    rng = np.random.default_rng(3)
+    aabb = rng.normal(size=(6, 70)).astype(np.float32)
+    aabb[:, 5] = np.nan
+    aabb[3, 40], aabb[0, 41] = np.inf, -np.inf
+    got = fused.group_boxes(t(aabb)).numpy()
+    assert got.shape == (6, 3)
+    for g in range(3):
+        cols = aabb[:, 32 * g:32 * g + 32]
+        np.testing.assert_array_equal(got[:3, g], np.nanmin(cols[:3], 1))
+        np.testing.assert_array_equal(got[3:, g], np.nanmax(cols[3:], 1))
+    assert got[3, 1] == np.inf and got[0, 1] == -np.inf
+    need = fused._smem_bytes(7811, 128, recull=True)
+    assert need == fused._smem_bytes(7811, 128) + 7811
+    assert 3 * (need + 3 * 1024) <= 228 * 1024
+
+
 class TestWalkOptIns:
     """The walk's slab pretest and re-cull (``pretest``, ``recull_every``),
     against tests/test_accel.py::TestFusedKernelFlags' reference: the

@@ -154,17 +154,26 @@ def test_backend_matches_jax(backend):
 
 
 def test_auto_routes_as_the_jax_package():
-    """``AUTO``: the sweep up to ``brute_force_max_tris`` triangles, then
-    the walk when the scene has clusters, the octree walk when it has only
-    an octree, the sweep last (raytpu/accel/traverse.py:275-291)."""
+    """``AUTO``: the sweep up to ``brute_force_max_tris`` triangles, then,
+    when the scene has clusters, the tiled query on the CPU, as the JAX
+    package does everywhere but on a TPU, and the walk on the card at every
+    cluster size (the 128-lane condition is Mosaic's rule); the octree walk
+    when it has only an octree, the sweep last
+    (raytpu/accel/traverse.py:275-291)."""
     small = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     big = terrain("torch", divisions=48).flatten(device="cpu")
     assert small.num_tris <= 4096 < big.num_tris
     auto = Intersector.AUTO
     assert resolve_intersector(small, auto) == Intersector.BRUTE
-    assert resolve_intersector(small, "auto", 0) == Intersector.PALLAS
-    assert resolve_intersector(big, auto) == Intersector.PALLAS
-    assert resolve_intersector(big, "tiled") == Intersector.TILED
+    assert resolve_intersector(small, "auto", 0) == Intersector.TILED
+    assert resolve_intersector(big, auto) == Intersector.TILED
+    assert resolve_intersector(big, "pallas") == Intersector.PALLAS
+    # Tables on the card (only their device is read): the walk, at a
+    # cluster size that is not a multiple of 128 too.
+    card_table = type("CardTable", (), {"device": torch.device("cuda")})()
+    for bake in (big, small):
+        on_card = dataclasses.replace(bake, clusters={"block": card_table})
+        assert resolve_intersector(on_card, "auto", 0) == Intersector.PALLAS
     no_clusters = dataclasses.replace(big, clusters=None)
     assert resolve_intersector(no_clusters, auto) == Intersector.OCTREE
     bare = dataclasses.replace(no_clusters, octree=None)
@@ -172,6 +181,28 @@ def test_auto_routes_as_the_jax_package():
     with pytest.raises(ValueError, match="build_octree"):
         nearest_hit(bare, *map(t, random_rays(1, 8)),
                     intersector=Intersector.OCTREE)
+
+
+def test_auto_render_above_the_sweep_matches_the_jax_package():
+    """A terrain of 4,232 triangles, just above ``brute_force_max_tris``,
+    rendered at 32x32 with one reflection through ``AUTO`` on the CPU:
+    both packages take the tiled query, so the images agree to the colour
+    tolerance."""
+    jflat = terrain("jax", divisions=46).flatten(build_octree=False)
+    assert 4096 < jflat.num_tris < 4400
+    pflat = to_port(jflat)
+    jcfg = JRenderConfig(width=32, height=32, max_reflections=1,
+                         quantize=JQuantize.NONE)
+    assert jcfg.intersector == JIntersector.AUTO
+    ro, rd = jax.jit(lambda: jax_camera_rays(
+        JCamera(position=(0.0, 28.0, 34.0)), 32, 32))()
+    img = np.asarray(jax.jit(lambda s, o, d: jax_render_rays(s, jcfg, o, d))(
+        jflat, ro, rd))
+    cfg = RenderConfig.from_json(jcfg.to_json())
+    assert resolve_intersector(pflat, cfg.intersector) == Intersector.TILED
+    colors = render_rays(pflat, cfg, t(ro), t(rd))
+    assert (img.max(-1) > 0).mean() > 0.3
+    np.testing.assert_allclose(colors.numpy(), img, rtol=0, atol=1e-5)
 
 
 def _tie_scene(types):

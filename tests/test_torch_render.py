@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from raytpu.config import Intersector, Quantize, RenderConfig, RenderMode
+from raytpu.config import (Intersector, Quantize, RenderConfig, RenderMode,
+                           TextureFiltering, UVAddressMode)
 from raytpu.core.camera import Camera as JaxCamera
 from raytpu.core.camera import camera_rays as jax_camera_rays
 from raytpu.diff.fit import render_loss as jax_render_loss
 from raytpu.diff.params import extract_params as jax_extract_params
+from raytpu.ref_oracle.tracer import render_image_oracle
 from raytpu.render.wavefront import render_rays as jax_render_rays
 from raytpu_torch.core.camera import Camera, camera_rays
 from raytpu_torch.core.xna import quantize_color
@@ -31,6 +33,8 @@ from raytpu_torch.kernels.fused import nearest_hit_fused
 from raytpu_torch.render.wavefront import (block_order_perm, render_image,
                                            render_rays)
 from tests.torch_scenes import flagship, jax_bake, sphere_and_plane, t
+from tests.scenes import (crate_scene, default_camera, small_cfg,
+                          sphere_and_plane_scene)
 from tests.torch_scenes import terrain, to_port
 
 torch.set_num_threads(1)
@@ -234,3 +238,45 @@ def test_transparent_gradients_match_reference():
         assert sure.mean() > 0.5
         np.testing.assert_allclose(g[sure], ref[sure], rtol=1e-4, atol=1e-6,
                                    err_msg=k)
+
+
+# The NumPy oracle's cases (tests/test_oracle.py) at 16x16: the scene, the
+# settings and the least share of pixels that must equal the oracle's
+# exactly.  Held as test_oracle.py holds the JAX renderer: byte-quantized
+# images, every other pixel within a few byte steps (silhouette pixels may
+# flip hit or miss between float32 and the oracle's float64 scalar math;
+# refraction bends more of them).
+ORACLE_TEXTURE = lambda: crate_scene(uv_scale=2.5, uv_offset=-0.75)  # noqa: E731
+ORACLE_CASES = {
+    "primary": (sphere_and_plane_scene, dict(max_reflections=0), 0.99),
+    "reflections": (lambda: sphere_and_plane_scene(reflect=0.6),
+                    dict(max_reflections=2), 0.99),
+    **{f"texture-{f.name.lower()}-{a.name.lower()}": (
+        ORACLE_TEXTURE, dict(max_reflections=1, filtering=f,
+                             address_mode=a), 0.99)
+       for f in (TextureFiltering.POINT, TextureFiltering.BILINEAR)
+       for a in (UVAddressMode.CLAMP, UVAddressMode.WRAP,
+                 UVAddressMode.MIRROR)},
+    "transparent": (lambda: sphere_and_plane_scene(transparent=True),
+                    dict(max_reflections=2), 0.97),
+    "directional": (lambda: sphere_and_plane_scene(light="directional"),
+                    dict(max_reflections=1), 0.99),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORACLE_CASES))
+def test_render_matches_oracle(case):
+    """The port's CPU render of the oracle's scenes (the JAX bake, through
+    the bridge) against ``render_image_oracle``."""
+    build, change, min_exact = ORACLE_CASES[case]
+    cfg = small_cfg(width=16, height=16, tile_pixels=256,
+                    quantize=Quantize.BOUNCE, **change)
+    flat = build().flatten(leaf_threshold=16, max_depth=8)
+    want = render_image_oracle(flat, cfg, default_camera())
+    got = render_image(to_port(flat), cfg,
+                       Camera(position=(0.0, 16.0, 32.0))).numpy()
+    assert got.shape == want.shape == (16, 16, 3)
+    assert (want.max(-1) > 0).any()  # not a black image
+    exact = np.all(np.abs(got - want) < 1e-6, axis=-1).mean()
+    assert exact >= min_exact, f"only {exact:.3%} pixels exact"
+    assert np.abs(got - want).max() <= 3.0 / 255.0 + 1e-6

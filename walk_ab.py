@@ -10,11 +10,16 @@ CUDA events, the 1024x1024 frame (primary + shadow rays), each of its
 walk calls, the prepick walk (64 picks) on the same queries, the
 frame baked at cluster size 32 with its subcluster walk calls and, where
 the tree bakes ``gblock``, the tensor-core walk's calls of the frame at
-each precision.  The trees
-run in the given order, then in reverse (A, B, B, A), so that drift of the
-card shows.  Prints one line per turn (with the
-registers and spill stores of each source's kernels), the card's name and
-power limit, and writes all of it as JSON to ``--out``.
+each precision.  Then the instanced frame (chip_smoke.py's: the terrain's
+one bake instanced 2x2, 1024x1024, one reflection): the frame's ms and, per
+walk call (the pretest walk with a re-cull every 6 trips), the kernel ms,
+the trips per tile (mean, p99, max), the ms per trip of the longest tile,
+the tested clusters of that tile and the kernel ms with the re-cull off
+(``recull_every=0``) on the same queries.  The trees run in the given
+order, then in reverse (A, B, B, A), so that drift of the card shows.
+Prints one line per turn (with the registers and spill stores of each
+source's kernels), the card's name and power limit, and writes all of it
+as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -103,8 +108,38 @@ if "build_gblock" in inspect.signature(flatten_scene).parameters:
                       "ms": cs._cuda_ms(lambda: fused.walk_cuda(
                           c, s, q, **kw), 16)}
                      for c, s, q, kw, _ in calls]
+# The instanced frame and its re-cull walk calls.
+from raytpu_torch.core.camera import Camera
+from raytpu_torch.render import instanced as prender
+
+iscene = prender.flatten_instanced(cs.instanced_frame_scene(cs.TRIS),
+                                   cluster_size=cs.CLUSTER_SIZE, device=dev,
+                                   **bake_kw)
+icfg = RenderConfig(width=cs.RES, height=cs.RES, max_reflections=1,
+                    tile_pixels=cs.RES ** 2, quantize=Quantize.NONE)
+camera = Camera(position=cs.INSTANCED_CAMERA, aspect=1.0)
+inst_frame_ms = cs._cuda_ms(
+    lambda: prender.render_image_instanced(iscene, icfg, camera), 2)
+with cs.recording_walks() as calls:
+    prender.render_image_instanced(iscene, icfg, camera)
+inst = []
+for c, s, q, kw, out in calls:
+    trips = out.iters.float()
+    longest = int(trips.argmax())
+    ms = cs._cuda_ms(lambda: fused.walk_cuda(c, s, q, **kw), 4)
+    inst.append({
+        "any_hit": kw["any_hit"], "recull_every": kw.get("recull_every", 0),
+        "ms": ms, "trips_mean": float(trips.mean()),
+        "trips_p99": float(torch.quantile(trips, 0.99)),
+        "trips_max": int(trips.max()),
+        "us_per_trip": 1e3 * ms / max(int(trips.max()), 1),
+        "longest_tested": int(out.tests[longest]),
+        "longest_ray_tests": int(out.ray_tests[longest]),
+        "recull0_ms": cs._cuda_ms(lambda: fused.walk_cuda(
+            c, s, q, **{**kw, "recull_every": 0}), 4)})
 print(json.dumps({"frame_ms": frame_ms, "walks": walks, "prepick": prepick,
                   "sub_frame_ms": sub_frame_ms, "sub": sub, "mxu": mxu,
+                  "inst_frame_ms": inst_frame_ms, "inst": inst,
                   "registers": regs, "spill_store_bytes": spills}))
 '''
 
@@ -150,10 +185,22 @@ def main():
               + "".join(f"; mxu {prec} " + ", ".join(
                   f"{kind(w)} {w['ms']:.3f} ms" for w in walks)
                   for prec, walks in res.get("mxu", {}).items())
+              + f"; instanced frame {res['inst_frame_ms']:.1f} ms, "
+              + f"{len(res['inst'])} walk calls "
+              + f"{sum(w['ms'] for w in res['inst']):.1f} ms "
+              + f"(re-cull off {sum(w['recull0_ms'] for w in res['inst']):.1f})"
               + "".join(
                   f"; {src} registers {'/'.join(r)} (spill stores "
                   f"{res['spill_store_bytes'].get(src, 0)} bytes)"
                   for src, r in res["registers"].items()), flush=True)
+        for i, w in enumerate(res["inst"]):
+            print(f"  instanced call {i} ({kind(w)}, re-cull "
+                  f"{w['recull_every']}): {w['ms']:.3f} ms, trips mean "
+                  f"{w['trips_mean']:.1f} p99 {w['trips_p99']:.0f} max "
+                  f"{w['trips_max']} ({w['us_per_trip']:.3f} us a trip of "
+                  f"the longest tile; it tested {w['longest_tested']} "
+                  f"clusters, {w['longest_ray_tests']} ray tests); re-cull "
+                  f"off {w['recull0_ms']:.3f} ms", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "turns": turns},
                                    indent=1))
