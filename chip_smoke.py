@@ -15,7 +15,9 @@ Phases, each printing its lines:
    classic walk's scalar pair test), 16 and 128;
    the subcluster walk at cluster sizes 64 and 32 with cull True, False
    and "reverse", planes on and off, the gate on and off, 1, 2 and 3 picks
-   a trip and trip budgets 1 and 4; the classic walk with 2 and 3 picks a
+   a trip and trip budgets 1 and 4, every block twice (tied keys) and rays
+   starting on the ground (zero keys, +0 and -0 hit distances); the
+   classic walk with 2 and 3 picks a
    trip; ignore ids, t bounds, NaN bounds and non-finite rays), the routing
    on a subcluster bake, the overflow strategies on the card against the
    CPU, and small renders, baked and instanced, on the card against the
@@ -65,7 +67,10 @@ Phases, each printing its lines:
 8. instanced 32: the instanced frame from a cluster_size=32 bake with the
    defaults (the block walk) and with the pretest and re-cull off (the
    subcluster walk), gate off and on, calls against the plain walk on every
-   128th tile, frame ms in turns against the 128 bake (and both bakes'
+   128th tile and, the subcluster walk's, on the 4 tiles with the most
+   trips (of the calls whose longest tile walks over 1,000 trips, every
+   fourth one, the gate off and on taking turns), those calls timed with
+   their bounds, frame ms in turns against the 128 bake (and both bakes'
    block walks with the re-cull off);
 9. pretest frame: the bench frame with ``cull_pretest=True,
    cull_recull=6``, counters checked, the image equal to the default
@@ -175,6 +180,9 @@ INSTANCED_TILE_STRIDE = 128
 # ... and on the tiles with the most trips (thousands in the reflection
 # walks: hundreds of re-culls, the lazy re-cull's epochs wrapping).
 INSTANCED_LONGEST = 4
+# [instanced 32]: calls whose longest tile walks more trips than this are
+# deep; the two subcluster settings hold every fourth one's longest tiles.
+INSTANCED_DEEP = 1000
 # bench.py's BENCH_CSIZE settings of the subcluster frames, and the
 # subcluster walk's shapes run on their queries: the gate and multi-block
 # trips.
@@ -336,16 +344,109 @@ def compare_walks(clusters, tri_shade, q, what, record, got=None, **walk):
     return err, plain_ms
 
 
-def walk_bound(q, out, clusters, walk):
+def _group_kernel(walk):
+    """Whether the walk options ``walk`` launch the group kernel
+    (csrc/subwalk.cu): the subcluster walk, or more than one pick a trip
+    without the matmul pair test."""
+    return ("gate" in walk or walk.get("chunk_k", 1) > 1) and not walk.get(
+        "mxu")
+
+
+@contextlib.contextmanager
+def reached_pairs(clusters, sampled=None):
+    """Inside, the plain walks on ``clusters`` count the pairs the group
+    kernel must test: for every sibling pass a trip runs, its lanes times
+    the rays of its tiles that are unresolved at the trip's start and
+    reach the sibling's box (widened by the root margin) before their best
+    so far (any-hit: their t bound, until a hit).  The kernel skips only
+    the other rays' pairs, and its warps test no fewer, so the count bounds
+    its pair tests from below.  ``sampled``: count those tiles only (a
+    pass none of them runs costs one look).  Yields a one-element list:
+    the count."""
+    from raytpu_torch.kernels import fused
+
+    count = [0]
+    walk = {}
+    prologue, test_cluster = fused._prologue, fused._test_cluster
+    boxes = clusters.get("sub_aabb", clusters["aabb"][None])
+    margin = clusters["root"][6]
+
+    def prologue_hook(root, o, *args):
+        # The plain walk takes the query's tiles in chunks, each from here.
+        walk["base"] = walk.get("next", 0)
+        walk["next"] = walk["base"] + o.shape[0]
+        walk["tiles"] = prologue(root, o, *args)
+        return walk["tiles"]
+
+    def test_hook(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
+                  any_hit, state, lo=0, hi=None, mxu=None):
+        keep = None if sampled is None else sampled[walk["base"] + idx]
+        if keep is not None and not bool(keep.any()):
+            return test_cluster(block, idx, k, o3, d3, w3, itri, imesh,
+                                tmax0, cull, any_hit, state, lo, hi, mxu)
+        lanes = (block.shape[2] if hi is None else hi) - lo
+        box = boxes[lo // lanes][:, k, None]  # (6, m, 1)
+        if any_hit:
+            cap = torch.where(state["bc"][idx] >= 0, -fused.INF, tmax0[idx])
+        else:
+            cap = torch.minimum(state["bt"][idx], tmax0[idx])
+        s_en = torch.full_like(cap, -fused.INF)
+        s_ex = torch.full_like(cap, fused.INF)
+        for c in range(3):
+            dc = d3[c][idx]
+            inv = 1.0 / torch.where(dc == 0.0, fused._TINY_DIR, dc)
+            t1 = (box[c] - margin - o3[c][idx]) * inv
+            t2 = (box[3 + c] + margin - o3[c][idx]) * inv
+            s_en = torch.maximum(s_en, torch.minimum(t1, t2))
+            s_ex = torch.minimum(s_ex, torch.maximum(t1, t2))
+        reach = ((s_en <= s_ex) & (s_ex >= 0.0) & (s_en < cap)
+                 & ~walk["tiles"].resolved[idx])
+        if keep is not None:
+            reach &= keep[:, None]
+        count[0] = count[0] + reach.sum() * lanes
+        return test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0,
+                            cull, any_hit, state, lo, hi, mxu)
+
+    fused._prologue, fused._test_cluster = prologue_hook, test_hook
+    try:
+        yield count
+    finally:
+        fused._prologue, fused._test_cluster = prologue, test_cluster
+    count[0] = float(count[0])
+
+
+def compare_counted(clusters, tri_shade, q, what, record, got, whole,
+                    sampled, **walk):
+    """compare_walks on the query ``q``, and, for the group kernel, the
+    pairs it must test (``reached_pairs``): (max abs err, plain ms, pairs
+    or None).  ``q`` may hold a subset of the call ``whole``'s tiles;
+    ``sampled`` (None: all) are those counted, and the count is scaled by
+    the call's ray tests over theirs."""
+    if not _group_kernel(walk):
+        return (*compare_walks(clusters, tri_shade, q, what, record, got=got,
+                               **walk), None)
+    with reached_pairs(clusters, sampled) as count:
+        err, plain_ms = compare_walks(clusters, tri_shade, q, what, record,
+                                      got=got, **walk)
+    counted = got.ray_tests if sampled is None else got.ray_tests[sampled]
+    return err, plain_ms, count[0] * (
+        float(whole.ray_tests.double().sum())
+        / max(float(counted.double().sum()), 1.0))
+
+
+def walk_bound(q, out, clusters, walk, pairs=None):
     """The least time the card could take for one walk call: the
     ray-triangle pairs the function needs (each tested cluster's or, in the
     subcluster walk, each sibling pass's unresolved rays, the walk's
     ``ray_tests``, times the triangles of a cluster or a pass) at OPS_PAIR
     operations each; bytes from each input read once and each output
     written once (the 18 used rows of every cluster block and the cull
-    tables counted once).  The walk's own overheads (entry bounds of the
-    prologue and of each re-cull, the per-trip pick, the pretest) are
-    counted apart in ``overhead_ops`` and are not part of the bound."""
+    tables counted once).  ``pairs``: the group kernel's, which tests a
+    ray's pass only when the ray reaches the pass's box (``reached_pairs``):
+    those pairs at OPS_PAIR each and a box test (OPS_PRETEST) for each of
+    ``ray_tests``.  The walk's own overheads (entry bounds of the prologue
+    and of each re-cull, the per-trip pick, the pretest) are counted apart
+    in ``overhead_ops`` and are not part of the bound."""
     from raytpu_torch.accel.clusters import leaves_per_block
 
     any_hit, pretest = walk["any_hit"], walk.get("pretest", False)
@@ -363,6 +464,9 @@ def walk_bound(q, out, clusters, walk):
     reculls = ((trips - 1).clamp(min=0) // recull if recull
                else torch.zeros_like(trips))
     ops = float(out.ray_tests.double().sum()) * lanes * OPS_PAIR[any_hit]
+    if pairs is not None:
+        ops = (pairs * OPS_PAIR[any_hit]
+               + float(out.ray_tests.double().sum()) * OPS_PRETEST)
     overhead = float((trips * ncg * OPS_PICK
                       + (live > 0) * (1 + reculls) * ncg * subk * OPS_ENTRY
                       + (trips * live * OPS_PRETEST if pretest else 0)).sum())
@@ -488,12 +592,24 @@ def _small_rays(rng, n, scene, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (o, d, itri, tm))
 
 
+def _duplicated(clusters):
+    """The walk tables of ``clusters`` with every block twice (ids k and
+    k + ncg): every key is tied, and the walks must take the lower id."""
+    tables = {"block": 0, "aabb": 1, "sub_aabb": 2, "sub_plane": 2}
+    out = {k: torch.cat([clusters[k], clusters[k]], dim).contiguous()
+           for k, dim in tables.items() if k in clusters}
+    out["root"] = clusters["root"]
+    return out
+
+
 def _small_subcluster(dev, record, note):
     """The subcluster walk at cluster sizes 64 and 32 against its plain
     version (nearest and any-hit; cull True, False and "reverse"; planes
     on and off; the gate on and off; 1, 2 and 3 picks a trip; trip budgets
-    1 and 4), the classic walk's chunked shapes, and the routing on a
-    subcluster bake."""
+    1 and 4; every block twice, so that every key is tied; rays that start
+    on the ground plane, with zero keys and +0 and -0 hit distances), the
+    classic walk's chunked shapes, and the routing on a subcluster
+    bake."""
     from raytpu_torch.kernels.fused import nearest_hit_fused, pack_query
 
     rng = np.random.default_rng(1)
@@ -523,6 +639,23 @@ def _small_subcluster(dev, record, note):
                         any_hit=any_hit, gate=gate, chunk_k=chunk,
                         max_trips=trips)[0], budget=True, sub=True,
                         gate=gate, chunk=chunk > 1)
+            # Ties: every block twice.  Zero keys and signed zeros: origins
+            # on the ground plane (y = 0), inside its blocks' boxes.
+            o0 = o.clone()
+            o0[:, 1] = 0.0
+            q0 = pack_query(o0, d, ignore_tri=itri,
+                            t_max=tmax if any_hit else None,
+                            tile_size=RAYS_PER_TILE)
+            for label, tabs, qq in (
+                    (" duplicated blocks", (_duplicated(scene.clusters),
+                                            scene.tri_shade), q),
+                    (" origins on the ground", tables, q0)):
+                for cull in (True, False):
+                    for gate, chunk in ((False, 1), (True, 1), (True, 2)):
+                        note(any_hit, False, compare_walks(
+                            *tabs, qq, what + label, record, cull=cull,
+                            any_hit=any_hit, gate=gate, chunk_k=chunk)[0],
+                            sub=True, gate=gate, chunk=chunk > 1)
         # The routing on a subcluster bake: the pretest, the re-cull and
         # the prepick walk take the block walk, without planes.
         for opts, want in (({}, "nearest_sub"), ({"pretest": True},
@@ -775,7 +908,8 @@ def tile_subset(q, out, stride, longest=0):
     """Every ``stride``-th whole tile of the walk call ``q`` and its
     kernel output ``out``, and the ``longest`` tiles with the most trips:
     tiles walk independently, so the plain walk on those tiles alone must
-    give their outputs and counters bit for bit."""
+    give their outputs and counters bit for bit.  Also which of the
+    subset's tiles are the ``stride``-th ones."""
     from raytpu_torch.kernels.fused import _PER_TILE, Query
 
     ts = q.tile
@@ -791,27 +925,30 @@ def tile_subset(q, out, stride, longest=0):
                                               else rays]
                            for f in out._fields
                            if getattr(out, f) is not None})
-    return sub, part
+    return sub, part, tiles % stride == 0
 
 
-def check_recorded(calls, what, record, tile_stride=1, longest=0):
+def check_recorded(calls, what, record, tile_stride=1, longest=0,
+                   longest_calls=None):
     """Hold every recorded walk call against the plain walk, on every
     ``tile_stride``-th whole tile (1: all of them) and the ``longest``
-    tiles with the most trips.  Returns the per-call rows (options, max
-    abs err, plain ms, trips, bound of the whole call)."""
+    tiles with the most trips (of the calls ``longest_calls``; None: of
+    every call).  Returns the per-call rows (options, max abs err, plain
+    ms, trips, bound of the whole call)."""
     out = []
     for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
-        cq, cgot = (q, got) if tile_stride == 1 else tile_subset(
-            q, got, tile_stride, longest)
-        err, plain_ms = compare_walks(clusters, tri_shade, cq,
-                                      f"{what} call {i}", record, got=cgot,
-                                      **kw)
+        most = longest if longest_calls is None or i in longest_calls else 0
+        cq, cgot, sampled = (q, got, None) if tile_stride == 1 else (
+            tile_subset(q, got, tile_stride, most))
+        err, plain_ms, pairs = compare_counted(
+            clusters, tri_shade, cq, f"{what} call {i}", record, cgot, got,
+            sampled, **kw)
         out.append({"kw": kw, "err": err, "plain_ms": plain_ms,
                     "plain_tiles": 1.0 / tile_stride,
                     "iters": got.iters, "out": got, "q": q,
                     "clusters": clusters,
                     "tri_shade": tri_shade,
-                    **walk_bound(q, got, clusters, kw)})
+                    **walk_bound(q, got, clusters, kw, pairs)})
     return out
 
 
@@ -1717,8 +1854,9 @@ def _variant_rows(rows, change, what, record):
     for row in rows:
         kw = {**row["kw"], **change}
         got = subwalk_cuda(row["clusters"], row["tri_shade"], row["q"], **kw)
-        err, plain_ms = compare_walks(row["clusters"], row["tri_shade"],
-                                      row["q"], what, record, got=got, **kw)
+        err, plain_ms, pairs = compare_counted(
+            row["clusters"], row["tri_shade"], row["q"], what, record, got,
+            got, None, **kw)
         base = row["out"]
         hit = base.code >= 0
         fields = GATE_KEEPS if "chunk_k" not in change else ()
@@ -1733,7 +1871,7 @@ def _variant_rows(rows, change, what, record):
                     "iters": got.iters, "out": got, "q": row["q"],
                     "clusters": row["clusters"],
                     "tri_shade": row["tri_shade"],
-                    **walk_bound(row["q"], got, row["clusters"], kw)})
+                    **walk_bound(row["q"], got, row["clusters"], kw, pairs)})
     return out
 
 
@@ -2024,7 +2162,8 @@ def phase_instanced32(dev, inst, record):
     """The instanced frame from a cluster_size=32 bake: with the defaults
     (the block walk, pretest and re-cull) and with the pretest and re-cull
     off (the subcluster walk), its gate off and on; their calls held against
-    the plain walk on a fixed subset of whole tiles; frame ms in turns
+    the plain walk on a fixed subset of whole tiles and, the subcluster
+    walk's, on the tiles with the most trips, and timed; frame ms in turns
     against the 128 bake."""
     from raytpu_torch.render import instanced as prender
 
@@ -2055,8 +2194,32 @@ def phase_instanced32(dev, inst, record):
         if not torch.equal(again, img):
             raise AssertionError(f"instanced 32 {label}: not repeatable")
         _check_image(img, f"instanced 32 {label}")
-        rows = check_recorded(calls, f"instanced 32 {label}", record,
-                              INSTANCED_TILE_STRIDE)
+        # The subcluster walk's calls also on the tiles with the most trips,
+        # thousands of picks deep into the key table: every call's whose
+        # longest tile walks at most INSTANCED_DEEP trips and, of the deeper
+        # calls, every fourth one, the two settings taking turns (the plain
+        # walk takes ~6 ms a trip there).
+        deep = [i for i, c in enumerate(calls)
+                if int(c[4].iters.max()) > INSTANCED_DEEP]
+        turn = deep[1::4] if kw.get("gate") else deep[::4]
+        rows = check_recorded(
+            calls, f"instanced 32 {label}", record, INSTANCED_TILE_STRIDE,
+            longest=INSTANCED_LONGEST if kw else 0,
+            longest_calls=set(range(len(calls))) - set(deep) | set(turn))
+        if kw:
+            for i, row in enumerate(rows):
+                row["kernel_ms"] = _kernel_ms(row, 2)
+                got = row["out"]
+                per_block = (float(got.ray_tests.double().sum())
+                             / max(float(got.tests.double().sum()), 1.0))
+                print(f"    call {i}: kernel {row['kernel_ms']:.3f} ms, "
+                      f"bound {row['bound_ms']:.3f} ms, trips mean "
+                      f"{float(row['iters'].float().mean()):.2f} max "
+                      f"{int(row['iters'].max())}, ray tests per tested "
+                      f"block {per_block:.1f}")
+            print(f"  {label}: its {len(rows)} walk calls: kernel "
+                  f"{sum(r['kernel_ms'] for r in rows):.3f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in rows):.3f} ms")
         differ = int((img != img128).any(-1).sum())
         print(f"  {label}: {len(calls)} walk calls; pixels that differ from "
               f"the 128 bake's frame: {differ}")
@@ -2080,7 +2243,9 @@ def phase_instanced32(dev, inst, record):
         f"{k} {[round(m, 3) for m in v]}" for k, v in ms.items()))
     record.append({"what": "instanced 32", "turns_ms": ms, **{
         label: {"launches": v["launches"],
-                "pixels_differ_128": v["pixels_differ_128"]}
+                "pixels_differ_128": v["pixels_differ_128"],
+                "calls": [_call_summary(r) for r in v["rows"]
+                          if "kernel_ms" in r]}
         for label, v in out.items()}})
     out["turns_ms"] = ms
     return out
@@ -3277,6 +3442,17 @@ def main():
             "raytpu/kernels/fused.py:1083-1115, :1154 (_tlane_kernel kc)",
             s32["chunk_launches"][f"{kind}_sub_chunk"],
             err_of(f"{kind}_sub_chunk", rows), rows, group))
+        if not any_hit:
+            # The instanced frame baked at 32 through the subcluster walk:
+            # its 16 calls a frame, gate off and on.
+            for label, suffix in (("subcluster walk", ""),
+                                  ("subcluster walk, gate", " gate")):
+                rows = inst32[label]["rows"]
+                launch = f"nearest_sub{suffix.replace(' ', '_')}"
+                kernels.append(_kernel_entry(
+                    f"subwalk_kernel<nearest> SUBK=4{suffix} instanced 32",
+                    tlane, inst32[label]["launches"][launch],
+                    err_of(launch, rows), rows, group))
         rows = pick(sub["classic_chunk"]["rows"])
         kernels.append(_kernel_entry(
             f"subwalk_kernel<{kind}> SUBK=1 chunk_k={CHUNK_CLASSIC} "

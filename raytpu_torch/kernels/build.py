@@ -36,9 +36,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I]
 # The prepick walk's: rays, tile, root, aabb, block, sizes; cull, picks.
 _PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I]
-# The group walk's: rays, tile, root, aabb, block, sizes, sub_aabb,
-# sub_plane, subk.
-_GROUP = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I]
+# The group walk's: rays, tile, root, aabb, cull boxes, group boxes, block,
+# sizes, sub_aabb, sub_plane, subk.
+_GROUP = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I]
 # The tensor-core walk's: rays, tile, root, aabb, plane, gblock, sizes.
 _MXU = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
 _SIGNATURES = {

@@ -134,65 +134,6 @@ struct Own {  // the entries a thread owns: ids tid, tid + threads, ...
   int sk;
 };
 
-struct Hit {  // a ray's best: t, cluster lane code, det-space u, v, det, tri
-  float t;
-  int code;
-  float u, v, det;
-  int tri;
-};
-
-__device__ __forceinline__ bool lex_less(float v, int k, float w, int l) {
-  return v < w || (v == w && k < l);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying cluster k's 18 geometry rows into ``geo``; every thread
-// issues its share (16-byte pieces when ``vec``).
-__device__ __forceinline__ void stage_async(const WalkArgs& a, int k,
-                                            float* geo, bool vec) {
-  const int C = a.csize;
-  const float* src = a.block + static_cast<size_t>(k) * kBlockRows * C;
-  if (vec) {
-    for (int e = threadIdx.x; e < kGeoRows * C / 4; e += blockDim.x) {
-      cp_async16(geo + 4 * e, src + 4 * e);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kGeoRows * C; e += blockDim.x) {
-      cp_async4(geo + e, src + e);
-    }
-  }
-}
-
-// A float's bits as an unsigned key in the order of its value (-0 below
-// +0), and back.
-__device__ __forceinline__ unsigned ordered(float x) {
-  const unsigned u = __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float unordered(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
 // The beam of the rays with m set, pruned at ``cap``'s block maximum, into
 // shared memory (fused.py::_tile_bounds_lm): the least and greatest origin
 // and direction of those rays per axis, by warp reductions of the values'
@@ -243,36 +184,6 @@ __device__ void beam_to_smem(const float o[3], const float d[3], bool m,
     }
   }
   __syncthreads();
-}
-
-// The warp's least (v, k) by entry, then id, in every lane.  Entries are
-// in [0, +inf] (a -0 entry equals +0), so with -0 made +0 their bits order
-// as their values: two warp reductions.
-__device__ __forceinline__ void warp_lexmin(float& v, int& k) {
-  const unsigned key = __float_as_uint(v + 0.f);
-  const unsigned m = __reduce_min_sync(0xffffffffu, key);
-  k = static_cast<int>(__reduce_min_sync(
-      0xffffffffu, key == m ? static_cast<unsigned>(k) : 0x7fffffffu));
-  v = __uint_as_float(m);
-}
-
-// Block-wide least (v, k) by entry, then id.  Every thread calls it, with
-// the other of two scratch buffers each call: a thread reads a buffer
-// before the barrier of the next call, which the next writer of the buffer
-// must pass first.
-__device__ Pick block_lexmin(float v, int k, float* red_f, int* red_i) {
-  warp_lexmin(v, k);
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red_f[threadIdx.x >> 5] = v;
-    red_i[threadIdx.x >> 5] = k;
-  }
-  __syncthreads();
-  const bool in = lane < static_cast<int>(blockDim.x >> 5);
-  v = in ? red_f[lane] : kInf;
-  k = in ? red_i[lane] : INT_MAX;
-  warp_lexmin(v, k);
-  return {v, k};
 }
 
 // Block-wide least (v, k) and least (u, l), each by entry, then id; the
@@ -412,146 +323,6 @@ __device__ __forceinline__ void refresh_owner(const WalkArgs& a, int k,
     }
   }
   if (PRETEST) cp_async_commit();
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// s * a, a + b, a - b per component, as the scalar walk rounds them.
-__device__ __forceinline__ float4 mul4(float s, float4 a) {
-  return make_float4(s * a.x, s * a.y, s * a.z, s * a.w);
-}
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
-  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-}
-
-// One pair's acceptance and, if it wins, the best's update (the scalar
-// walk's test, lane j of the staged block, code base + j).
-template <bool ANY_HIT, int CULL>
-__device__ __forceinline__ void take(const float* geo, int C, int j,
-                                     float det, float udet, float vdet,
-                                     float tdet, float tmax0, int itri,
-                                     int imesh, int base, Hit& h) {
-  const bool ok = ANY_HIT ? accept_within<CULL>(det, udet, vdet, tdet, tmax0)
-                          : accept<CULL>(det, udet, vdet, tdet);
-  if (!ok) return;
-  const int tri_id = __float_as_int(geo[16 * C + j]);
-  const int mesh_id = __float_as_int(geo[17 * C + j]);
-  if (tri_id == itri || mesh_id == imesh) return;
-  if (ANY_HIT) {
-    h.code = 0;
-    return;
-  }
-  const float dist = tdet / det;
-  if (dist < h.t) {
-    h.t = dist;
-    h.code = base + j;
-    h.u = udet;
-    h.v = vdet;
-    h.det = det;
-    h.tri = tri_id;
-  }
-}
-
-// Whether a pair with these det and u*det can pass its cull's sign tests
-// (the first conjuncts of accept<CULL>).
-template <int CULL>
-__device__ __forceinline__ bool u_ok(float det, float udet) {
-  if (CULL == 2) return udet >= 0.f && det > 0.f;
-  if (CULL == 1) return udet <= 0.f && det < 0.f;
-  const float s = det < 0.f ? -1.f : 1.f;
-  return udet * s >= 0.f && det * s > 0.f;
-}
-
-// Lanes j0 to j0 + 3 of the staged block, in lane order; rows read as float4.
-// EARLY (the warp's lanes all run the same lanes): when no pair of the warp
-// can pass the u test, v, t and the acceptance are skipped.
-template <bool ANY_HIT, int CULL, bool EARLY>
-__device__ __forceinline__ void test4(const float* geo, int C, int j0,
-                                      const float o[3], const float d[3],
-                                      const float w[3], float tmax0, int itri,
-                                      int imesh, int base, Hit& h) {
-  const float* g = geo + j0;
-  float4 det, on;
-  {
-    const float4 nx = ld4(g), ny = ld4(g + C), nz = ld4(g + 2 * C);
-    det = add4(add4(mul4(d[0], nx), mul4(d[1], ny)), mul4(d[2], nz));
-    on = add4(add4(mul4(o[0], nx), mul4(o[1], ny)), mul4(o[2], nz));
-  }
-  float4 u = mul4(w[0], ld4(g + 6 * C));
-  u = add4(u, mul4(w[1], ld4(g + 7 * C)));
-  u = add4(u, mul4(w[2], ld4(g + 8 * C)));
-  u = add4(u, mul4(d[0], ld4(g + 3 * C)));
-  u = add4(u, mul4(d[1], ld4(g + 4 * C)));
-  u = add4(u, mul4(d[2], ld4(g + 5 * C)));
-  if (EARLY) {
-    const bool need = u_ok<CULL>(det.x, u.x) || u_ok<CULL>(det.y, u.y) ||
-                      u_ok<CULL>(det.z, u.z) || u_ok<CULL>(det.w, u.w);
-    if (!__any_sync(0xffffffffu, need)) return;
-  }
-  const float4 tdet = sub4(ld4(g + 15 * C), on);
-  float4 v = mul4(w[0], ld4(g + 12 * C));
-  v = add4(v, mul4(w[1], ld4(g + 13 * C)));
-  v = add4(v, mul4(w[2], ld4(g + 14 * C)));
-  v = add4(v, mul4(d[0], ld4(g + 9 * C)));
-  v = add4(v, mul4(d[1], ld4(g + 10 * C)));
-  v = add4(v, mul4(d[2], ld4(g + 11 * C)));
-  take<ANY_HIT, CULL>(geo, C, j0, det.x, u.x, v.x, tdet.x, tmax0, itri, imesh,
-                      base, h);
-  take<ANY_HIT, CULL>(geo, C, j0 + 1, det.y, u.y, v.y, tdet.y, tmax0, itri,
-                      imesh, base, h);
-  take<ANY_HIT, CULL>(geo, C, j0 + 2, det.z, u.z, v.z, tdet.z, tmax0, itri,
-                      imesh, base, h);
-  take<ANY_HIT, CULL>(geo, C, j0 + 3, det.w, u.w, v.w, tdet.w, tmax0, itri,
-                      imesh, base, h);
-}
-
-// Lane j of the staged block, scalar rows.
-template <bool ANY_HIT, int CULL>
-__device__ __forceinline__ void test1(const float* geo, int C, int j,
-                                      const float o[3], const float d[3],
-                                      const float w[3], float tmax0, int itri,
-                                      int imesh, int base, Hit& h) {
-  const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
-  const float det = d[0] * nx + d[1] * ny + d[2] * nz;
-  const float udet = w[0] * geo[6 * C + j] + w[1] * geo[7 * C + j] +
-                     w[2] * geo[8 * C + j] + d[0] * geo[3 * C + j] +
-                     d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
-  const float vdet = w[0] * geo[12 * C + j] + w[1] * geo[13 * C + j] +
-                     w[2] * geo[14 * C + j] + d[0] * geo[9 * C + j] +
-                     d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
-  const float tdet = geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
-  take<ANY_HIT, CULL>(geo, C, j, det, udet, vdet, tdet, tmax0, itri, imesh,
-                      base, h);
-}
-
-// Lanes first, first + step, ... of the staged block (in 4-lane groups when
-// ``vec``: groups first, first + step, ...), in ascending order.  EARLY:
-// test4's early-out (every lane of the warp runs the same lanes).
-template <bool ANY_HIT, int CULL, bool EARLY>
-__device__ __forceinline__ void test_lanes(const float* geo, int C, bool vec,
-                                           int first, int step,
-                                           const float o[3], const float d[3],
-                                           float tmax0, int itri, int imesh,
-                                           int base, Hit& h) {
-  const float w[3] = {d[1] * o[2] - d[2] * o[1], d[2] * o[0] - d[0] * o[2],
-                      d[0] * o[1] - d[1] * o[0]};
-  if (vec) {
-#pragma unroll 1
-    for (int q = first; q < C / 4; q += step) {
-      test4<ANY_HIT, CULL, EARLY>(geo, C, 4 * q, o, d, w, tmax0, itri, imesh,
-                                  base, h);
-    }
-  } else {
-#pragma unroll 1
-    for (int j = first; j < C; j += step) {
-      test1<ANY_HIT, CULL>(geo, C, j, o, d, w, tmax0, itri, imesh, base, h);
-    }
-  }
 }
 
 // The pretest vote on the box in ``box`` (fused.py::_slab_viable).
@@ -702,7 +473,7 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
   unsigned epoch = 0;
 
   // Per-ray state (fused.py::_walk_tiles).
-  Hit best{tmax0, -1, 0.f, 0.f, 1.f, -1};
+  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};
   // Tested clusters and ray tests, kept by thread 0.
   __shared__ int counts[2];
   if (tid == 0) counts[0] = counts[1] = 0;
@@ -751,8 +522,8 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
       const int base = cur.k * C;
       if (2 * U > nt) {
         // Every thread tests its own ray against every lane.
-        test_lanes<ANY_HIT, CULL, true>(geo, C, vec, 0, 1, o, d, tmax0,
-                                        itri, imesh, base, best);
+        test_lanes<ANY_HIT, CULL, 1>(geo, C, vec, 0, C, 0, 1, o, d, tmax0,
+                                     itri, imesh, base, best);
       } else if (U > 0) {
         // Tail: the U unresolved rays' tests spread over G threads each.
         int G = 32;
@@ -777,14 +548,14 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
         }
         __syncthreads();
         const int s = tid / G, g = tid % G;
-        Hit lb{kInf, -1, 0.f, 0.f, 1.f, -1};
+        Best lb{kInf, -1, 0.f, 0.f, 1.f, -1};
         float* sl = slots + s * kSlotWords;
         if (s < U) {
           const float so[3] = {sl[0], sl[1], sl[2]};
           const float sd[3] = {sl[3], sl[4], sl[5]};
-          test_lanes<ANY_HIT, CULL, false>(geo, C, vec, g, G, so, sd, sl[6],
-                                    __float_as_int(sl[7]),
-                                    __float_as_int(sl[8]), 0, lb);
+          test_lanes<ANY_HIT, CULL, 0>(
+              geo, C, vec, 0, C, g, G, so, sd, sl[6], __float_as_int(sl[7]),
+              __float_as_int(sl[8]), 0, lb);
         }
         // The group's least (t, lane); any-hit: whether any lane hit.
         for (int off = G >> 1; off > 0; off >>= 1) {

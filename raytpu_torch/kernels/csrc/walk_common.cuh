@@ -33,8 +33,11 @@ struct WalkArgs {
   const float* aabb;       // (6, ncg) block boxes
   const float* plane;      // (5, ncg) or null (slab interval alone);
                            // unused by the prepick walk
-  const float* group_aabb; // walk_kernel only: (6, ceil(ncg / 32)) boxes
-                           // of 32 consecutive clusters
+  const float* group_aabb; // walk_kernel and subwalk_kernel: (6,
+                           // ceil(ncg / 32)) boxes of 32 consecutive
+                           // clusters (of their cull boxes)
+  const float* cull_aabb;  // subwalk_kernel only: (6, ncg) boxes, each
+                           // holding its block's sibling boxes
   const float* block;      // (ncg, 24, csize)
   int ncg;
   int csize;
@@ -397,6 +400,257 @@ __device__ __forceinline__ void test_staged(const float* geo, int C, int lo,
         best.det = det;
         best.tri = tri_id;
       }
+    }
+  }
+}
+
+// ---- Shared by the classic and group walks: asynchronous copies, picks
+// from per-thread least entries, the float4 pair tests ----------------------
+
+__device__ __forceinline__ bool lex_less(float v, int k, float w, int l) {
+  return v < w || (v == w && k < l);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying cluster k's 18 geometry rows into ``geo``; every thread
+// issues its share (16-byte pieces when ``vec``).
+__device__ __forceinline__ void stage_async(const WalkArgs& a, int k,
+                                            float* geo, bool vec) {
+  const int C = a.csize;
+  const float* src = a.block + static_cast<size_t>(k) * kBlockRows * C;
+  if (vec) {
+    for (int e = threadIdx.x; e < kGeoRows * C / 4; e += blockDim.x) {
+      cp_async16(geo + 4 * e, src + 4 * e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kGeoRows * C; e += blockDim.x) {
+      cp_async4(geo + e, src + e);
+    }
+  }
+}
+
+// A float's bits as an unsigned key in the order of its value (-0 below
+// +0), and back.
+__device__ __forceinline__ unsigned ordered(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unordered(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The warp's least (v, k) by entry, then id, in every lane.  Entries are
+// in [0, +inf] (a -0 entry equals +0), so with -0 made +0 their bits order
+// as their values: two warp reductions.
+__device__ __forceinline__ void warp_lexmin(float& v, int& k) {
+  const unsigned key = __float_as_uint(v + 0.f);
+  const unsigned m = __reduce_min_sync(0xffffffffu, key);
+  k = static_cast<int>(__reduce_min_sync(
+      0xffffffffu, key == m ? static_cast<unsigned>(k) : 0x7fffffffu));
+  v = __uint_as_float(m);
+}
+
+// Block-wide least (v, k) by entry, then id.  Every thread calls it, with
+// the other of two scratch buffers each call: a thread reads a buffer
+// before the barrier of the next call, which the next writer of the buffer
+// must pass first.
+__device__ Pick block_lexmin(float v, int k, float* red_f, int* red_i) {
+  warp_lexmin(v, k);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red_f[threadIdx.x >> 5] = v;
+    red_i[threadIdx.x >> 5] = k;
+  }
+  __syncthreads();
+  const bool in = lane < static_cast<int>(blockDim.x >> 5);
+  v = in ? red_f[lane] : kInf;
+  k = in ? red_i[lane] : INT_MAX;
+  warp_lexmin(v, k);
+  return {v, k};
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s * a, a + b, a - b per component, as the scalar walk rounds them.
+__device__ __forceinline__ float4 mul4(float s, float4 a) {
+  return make_float4(s * a.x, s * a.y, s * a.z, s * a.w);
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// One pair's acceptance and, if it wins, the best's update (the scalar
+// walk's test, lane j of the staged block, code base + j).
+template <bool ANY_HIT, int CULL>
+__device__ __forceinline__ void take(const float* geo, int C, int j,
+                                     float det, float udet, float vdet,
+                                     float tdet, float tmax0, int itri,
+                                     int imesh, int base, Best& h) {
+  const bool ok = ANY_HIT ? accept_within<CULL>(det, udet, vdet, tdet, tmax0)
+                          : accept<CULL>(det, udet, vdet, tdet);
+  if (!ok) return;
+  const int tri_id = __float_as_int(geo[16 * C + j]);
+  const int mesh_id = __float_as_int(geo[17 * C + j]);
+  if (tri_id == itri || mesh_id == imesh) return;
+  if (ANY_HIT) {
+    h.code = 0;
+    return;
+  }
+  const float dist = tdet / det;
+  if (dist < h.t) {
+    h.t = dist;
+    h.code = base + j;
+    h.u = udet;
+    h.v = vdet;
+    h.det = det;
+    h.tri = tri_id;
+  }
+}
+
+// Whether a pair with these det and u*det can pass its cull's sign tests
+// (the first conjuncts of accept<CULL>).
+template <int CULL>
+__device__ __forceinline__ bool u_ok(float det, float udet) {
+  if (CULL == 2) return udet >= 0.f && det > 0.f;
+  if (CULL == 1) return udet <= 0.f && det < 0.f;
+  const float s = det < 0.f ? -1.f : 1.f;
+  return udet * s >= 0.f && det * s > 0.f;
+}
+
+// Whether a pair with this det can pass its cull's sign test on det (the
+// last conjunct of accept<CULL>; every det passes without culling).
+template <int CULL>
+__device__ __forceinline__ bool det_ok(float det) {
+  return CULL == 2 ? det > 0.f : CULL == 1 ? det < 0.f : true;
+}
+
+// Lanes j0 to j0 + 3 of the staged block, in lane order; rows read as float4.
+// EARLY (every lane of the warp calls it): 1, when no pair of the warp can
+// pass the u test, v, t and the acceptance are skipped; 2, with culling,
+// first the same on det alone, and o.n (for t) only after the u test, from
+// the normal rows read again.  A lane that is not ``live`` tests nothing
+// and only votes.
+template <bool ANY_HIT, int CULL, int EARLY>
+__device__ __forceinline__ void test4(const float* geo, int C, int j0,
+                                      const float o[3], const float d[3],
+                                      const float w[3], float tmax0, int itri,
+                                      int imesh, int base, Best& h,
+                                      bool live = true) {
+  const float* g = geo + j0;
+  float4 det, on;
+  {
+    const float4 nx = ld4(g), ny = ld4(g + C), nz = ld4(g + 2 * C);
+    det = add4(add4(mul4(d[0], nx), mul4(d[1], ny)), mul4(d[2], nz));
+    if (EARLY == 2 && CULL != 0) {
+      const bool need = live && (det_ok<CULL>(det.x) || det_ok<CULL>(det.y) ||
+                                 det_ok<CULL>(det.z) || det_ok<CULL>(det.w));
+      if (!__any_sync(0xffffffffu, need)) return;
+    }
+    if (EARLY != 2) {
+      on = add4(add4(mul4(o[0], nx), mul4(o[1], ny)), mul4(o[2], nz));
+    }
+  }
+  float4 u = mul4(w[0], ld4(g + 6 * C));
+  u = add4(u, mul4(w[1], ld4(g + 7 * C)));
+  u = add4(u, mul4(w[2], ld4(g + 8 * C)));
+  u = add4(u, mul4(d[0], ld4(g + 3 * C)));
+  u = add4(u, mul4(d[1], ld4(g + 4 * C)));
+  u = add4(u, mul4(d[2], ld4(g + 5 * C)));
+  if (EARLY) {
+    const bool need =
+        live && (u_ok<CULL>(det.x, u.x) || u_ok<CULL>(det.y, u.y) ||
+                 u_ok<CULL>(det.z, u.z) || u_ok<CULL>(det.w, u.w));
+    if (!__any_sync(0xffffffffu, need)) return;
+  }
+  if (!live) return;
+  if (EARLY == 2) {
+    on = add4(add4(mul4(o[0], ld4(g)), mul4(o[1], ld4(g + C))),
+              mul4(o[2], ld4(g + 2 * C)));
+  }
+  const float4 tdet = sub4(ld4(g + 15 * C), on);
+  float4 v = mul4(w[0], ld4(g + 12 * C));
+  v = add4(v, mul4(w[1], ld4(g + 13 * C)));
+  v = add4(v, mul4(w[2], ld4(g + 14 * C)));
+  v = add4(v, mul4(d[0], ld4(g + 9 * C)));
+  v = add4(v, mul4(d[1], ld4(g + 10 * C)));
+  v = add4(v, mul4(d[2], ld4(g + 11 * C)));
+  take<ANY_HIT, CULL>(geo, C, j0, det.x, u.x, v.x, tdet.x, tmax0, itri, imesh,
+                      base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 1, det.y, u.y, v.y, tdet.y, tmax0, itri,
+                      imesh, base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 2, det.z, u.z, v.z, tdet.z, tmax0, itri,
+                      imesh, base, h);
+  take<ANY_HIT, CULL>(geo, C, j0 + 3, det.w, u.w, v.w, tdet.w, tmax0, itri,
+                      imesh, base, h);
+}
+
+// Lane j of the staged block, scalar rows.
+template <bool ANY_HIT, int CULL>
+__device__ __forceinline__ void test1(const float* geo, int C, int j,
+                                      const float o[3], const float d[3],
+                                      const float w[3], float tmax0, int itri,
+                                      int imesh, int base, Best& h) {
+  const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
+  const float det = d[0] * nx + d[1] * ny + d[2] * nz;
+  const float udet = w[0] * geo[6 * C + j] + w[1] * geo[7 * C + j] +
+                     w[2] * geo[8 * C + j] + d[0] * geo[3 * C + j] +
+                     d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
+  const float vdet = w[0] * geo[12 * C + j] + w[1] * geo[13 * C + j] +
+                     w[2] * geo[14 * C + j] + d[0] * geo[9 * C + j] +
+                     d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
+  const float tdet = geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
+  take<ANY_HIT, CULL>(geo, C, j, det, udet, vdet, tdet, tmax0, itri, imesh,
+                      base, h);
+}
+
+// Lanes lo + first, lo + first + step, ... below hi of the staged block
+// (in 4-lane groups when ``vec``: groups lo / 4 + first, ... below hi / 4;
+// lo and hi multiples of 4), in ascending order.  EARLY: test4's early-out
+// (every lane of the warp runs the same lanes).
+template <bool ANY_HIT, int CULL, int EARLY>
+__device__ __forceinline__ void test_lanes(const float* geo, int C, bool vec,
+                                           int lo, int hi, int first,
+                                           int step, const float o[3],
+                                           const float d[3], float tmax0,
+                                           int itri, int imesh, int base,
+                                           Best& h) {
+  const float w[3] = {d[1] * o[2] - d[2] * o[1], d[2] * o[0] - d[0] * o[2],
+                      d[0] * o[1] - d[1] * o[0]};
+  if (vec) {
+#pragma unroll 1
+    for (int q = lo / 4 + first; q < hi / 4; q += step) {
+      test4<ANY_HIT, CULL, EARLY>(geo, C, 4 * q, o, d, w, tmax0, itri, imesh,
+                                  base, h);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = lo + first; j < hi; j += step) {
+      test1<ANY_HIT, CULL>(geo, C, j, o, d, w, tmax0, itri, imesh, base, h);
     }
   }
 }

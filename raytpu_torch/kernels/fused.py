@@ -981,8 +981,12 @@ def prepick_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
 MAX_CHUNK = 8
 _BEAM_BYTES = 128
 # Words of shared memory for each ray whose tests the classic walk spreads
-# over several threads (csrc/walk.cu ``kSlotWords``).
+# over several threads (csrc/walk.cu ``kSlotWords``), and the group
+# kernel's: the ray, its best t and the result (csrc/subwalk.cu
+# ``kTailWords``); a sibling's copied box and plane (``kSibWords``).
 _SLOT_WORDS = 9
+_TAIL_WORDS = 10
+_SIB_WORDS = 11
 
 
 def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
@@ -997,9 +1001,12 @@ def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
     entry.  A consumed cluster's
     entry is marked +inf in place (``CONSUMED``).  ``picks``: the prepick
     walk's, the entry table, one staged block and the picks (entry and id).
-    ``chunk_k`` > 0: the group kernel's, with ``chunk_k`` staged blocks,
-    the group's keys and ids and, ``subk`` > 1, their sibling entries and
-    the beam (csrc/subwalk.cu ``group_smem_bytes``).  ``mxu``: the
+    ``chunk_k`` > 0: the group kernel's (csrc/subwalk.cu
+    ``group_smem_bytes``): the key table (padded to 4 floats), two groups
+    of ``chunk_k`` staged blocks, 10 words for each of half the block's
+    threads (the spread tests), the beam, the picks' scratch, and the two
+    groups' keys, ids, ``subk`` sibling entries a pick and their copied
+    sibling boxes and planes.  ``mxu``: the
     tensor-core walk's at that precision, whose staged block is 8
     coefficient rows of each of its 4 column blocks, each row padded by 8
     floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C ids
@@ -1010,21 +1017,23 @@ def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
         return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
     if picks:
         return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
+    nt = (tile + 31) // 32 * 32
     if not chunk_k:
-        nt = (tile + 31) // 32 * 32
         words = (-(-ncg // 4) * 4 + 2 * GEO_ROWS * csize
                  + nt // 2 * _SLOT_WORDS + 10 * nt)
         return 4 * words + (ncg if recull else 0)
-    n = 4 * (ncg + chunk_k * GEO_ROWS * csize) + 8 * chunk_k
-    return n + (4 * chunk_k * subk + _BEAM_BYTES if subk > 1 else 0)
+    words = (-(-ncg // 4) * 4 + 2 * chunk_k * GEO_ROWS * csize
+             + nt // 2 * _TAIL_WORDS + 2 * 64 + 4 * chunk_k
+             + 2 * chunk_k * subk * (1 + _SIB_WORDS))
+    return 4 * words + _BEAM_BYTES
 
 
 def group_boxes(aabb):
     """The (6, ceil(n / 32)) boxes of 32 consecutive clusters of the
     (6, n) box table: the least mins and greatest maxes of theirs (a NaN
     box, infeasible for every beam, left out).  The classic walk kernel
-    gives a tile's clusters no look whose group box its beam cannot
-    reach."""
+    and the group kernel (of ``cull_boxes``) give a tile's clusters no
+    look whose group box its beam cannot reach."""
     pad = -aabb.shape[1] % 32
     inf = float("inf")
     lo, hi = aabb[:3], aabb[3:]
@@ -1034,6 +1043,19 @@ def group_boxes(aabb):
                                  (0, pad), value=-inf)
     return torch.cat([lo.view(3, -1, 32).amin(2),
                       hi.view(3, -1, 32).amax(2)]).contiguous()
+
+
+def cull_boxes(sub_aabb):
+    """The (6, n) boxes of the (subk, 6, n) sibling box table, each holding
+    its block's sibling boxes: the least mins and greatest maxes of theirs,
+    or the whole space for a block with a NaN sibling coordinate (whose
+    entry a box could not bound).  The group kernel gives a tile's block no
+    look at its siblings when its beam cannot reach this box."""
+    inf = float("inf")
+    bad = sub_aabb.isnan().flatten(0, 1).any(0)
+    lo = torch.where(bad, -inf, sub_aabb[:, :3].amin(0))
+    hi = torch.where(bad, inf, sub_aabb[:, 3:].amax(0))
+    return torch.cat([lo, hi]).contiguous()
 
 
 def _check(name, x, dev, dtype, shape):
@@ -1184,10 +1206,12 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
                 p(out["t"]), p(out["code"]), *winner, *counts)
         fn = "rt_mxu_" + kind
     elif group:
-        args = (*rays, p(block), ncg, csize, p(spec.aabb), plane,
-                spec.aabb.shape[0], *shade, *shape, spec.chunk_k,
-                int(spec.gate), p(out["t"]), p(out["code"]), *winner,
-                *counts)
+        cull = cull_boxes(spec.aabb)
+        groups = group_boxes(cull)
+        args = (*rays, p(cull), p(groups), p(block), ncg, csize,
+                p(spec.aabb), plane, spec.aabb.shape[0], *shade, *shape,
+                spec.chunk_k, int(spec.gate), p(out["t"]), p(out["code"]),
+                *winner, *counts)
         fn = "rt_subwalk_" + kind
     else:
         groups = group_boxes(clusters["aabb"])

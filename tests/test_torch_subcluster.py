@@ -338,4 +338,67 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
     spec = fused._walk_spec(big, True, True, 8)
     with pytest.raises(ValueError, match="shared memory"):
         fused._validate(big, flat.tri_shade, q, True, spec=spec, group=True)
-    assert fused._smem_bytes(7811, 128, chunk_k=1, subk=4) < 48 * 1024
+    # The bench bake at 32: three blocks of 256 threads fit an SM's 228 KB
+    # (1 KB of each reserved).
+    assert 3 * (fused._smem_bytes(7811, 128, chunk_k=1, subk=4)
+                + 1024) <= 228 * 1024
+
+
+def test_group_picks_follow_the_sorted_keys():
+    """What the group kernel's pick and prologue rest on.  A subcluster
+    walk never changes a key after the prologue, so a tile's picks
+    (``_pick_group``, three a call) are its keys in (key, id) order, -0
+    equal to +0, up to the first infeasible key: the kernel picks from
+    each thread's least key without a scan.  Each block's cull box
+    (``cull_boxes``) holds its sibling boxes, so a beam that cannot reach
+    it reaches no sibling; a NaN sibling coordinate makes it the whole
+    space."""
+    # Two tiles of rays down onto two corners of the terrain: narrow beams
+    # that reach some blocks and not others.
+    rng = np.random.default_rng(27)
+    o = rng.uniform(-3.0, 3.0, size=(2, 256, 3)).astype(np.float32)
+    o[..., 1] = 6.0
+    o[0, :, ::2] -= 12.0
+    o[1, :, ::2] += 12.0
+    d = rng.normal(scale=0.1, size=(2, 256, 3)).astype(np.float32)
+    d[..., 1] = -1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = t(o), t(d)
+    for csize in (64, 32):
+        cl = terrain("torch", divisions=48).flatten(
+            device="cpu", cluster_size=csize).clusters
+        subk = leaves_per_block(cl)
+        assert subk == 128 // csize
+        tl = fused._prologue(cl["root"], o, d,
+                             torch.full((2, 256), fused.INF))
+        esub = [fused._entry_bounds(cl["sub_aabb"][h], cl["sub_plane"][h],
+                                    tl.finite, tl.o3, tl.d3, tl.wcap)
+                for h in range(subk)]
+        keys = functools.reduce(torch.minimum, esub)
+        ent, tiles, picks = keys.clone(), torch.arange(2), []
+        while not picks or bool((picks[-1][0] < fused.INF).any()):
+            picks.append(fused._pick_group(ent, tiles, 3))
+        pv = torch.cat([v for v, _ in picks], 1)
+        pk = torch.cat([k for _, k in picks], 1)
+        for tile in range(2):
+            vals, ids = torch.sort(keys[tile], stable=True)
+            n = int((vals < fused.INF).sum())
+            assert 0 < n < keys.shape[1]
+            torch.testing.assert_close(pk[tile, :n], ids[:n], rtol=0, atol=0)
+            assert torch.equal(pv[tile, :n], vals[:n])
+            assert bool((pv[tile, n:] == fused.INF).all())
+
+        cull = fused.cull_boxes(cl["sub_aabb"])
+        sub = cl["sub_aabb"]
+        assert bool((cull[:3] <= sub[:, :3]).all())
+        assert bool((cull[3:] >= sub[:, 3:]).all())
+        reach = fused._entry_bounds(cull, None, tl.finite, tl.o3, tl.d3,
+                                    tl.wcap) < fused.INF
+        assert bool((reach | (keys == fused.INF)).all())
+        assert bool((~reach).any())
+        bad = sub.clone()
+        bad[subk - 1, 4, 0] = float("nan")
+        whole = fused.cull_boxes(bad)[:, 0]
+        inf = float("inf")
+        assert whole.tolist() == [-inf] * 3 + [inf] * 3
+        assert torch.equal(fused.cull_boxes(bad)[:, 1:], cull[:, 1:])

@@ -15,7 +15,14 @@ one bake instanced 2x2, 1024x1024, one reflection): the frame's ms and, per
 walk call (the pretest walk with a re-cull every 6 trips), the kernel ms,
 the trips per tile (mean, p99, max), the ms per trip of the longest tile,
 the tested clusters of that tile and the kernel ms with the re-cull off
-(``recull_every=0``) on the same queries.  The trees run in the given
+(``recull_every=0``) on the same queries.  Last, the instanced frame baked
+at cluster size 32 through the subcluster walk (the pretest and re-cull
+off), gate off and on: the frame's ms and, per walk call, the kernel ms,
+the trips per tile (mean, p99, max), the ms per trip of the longest tile,
+the ray tests per tested block, the unresolved rays a trip of the longest
+tile and the share of the trips made in tiles that average more than half
+the tile unresolved (four passes a trip: with the gate they read low).
+The trees run in the given
 order, then in reverse (A, B, B, A), so that drift of the card shows.
 Prints one line per turn (with the registers and spill stores of each
 source's kernels), the card's name and power limit, and writes all of it
@@ -137,9 +144,41 @@ for c, s, q, kw, out in calls:
         "longest_ray_tests": int(out.ray_tests[longest]),
         "recull0_ms": cs._cuda_ms(lambda: fused.walk_cuda(
             c, s, q, **{**kw, "recull_every": 0}), 4)})
+del iscene
+# The instanced frame baked at 32 through the subcluster walk.
+iscene = prender.flatten_instanced(cs.instanced_frame_scene(cs.TRIS),
+                                   cluster_size=SUB, device=dev, **bake_kw)
+inst32 = {}
+for gate in (False, True):
+    with cs.walk_defaults(**cs.NO_OPT_INS, gate=gate):
+        frame32_ms = cs._cuda_ms(
+            lambda: prender.render_image_instanced(iscene, icfg, camera), 1)
+        with cs.recording_walks() as calls:
+            prender.render_image_instanced(iscene, icfg, camera)
+    rows = []
+    for c, s, q, kw, out in calls:
+        trips = out.iters.float()
+        ms = cs._cuda_ms(lambda: fused.subwalk_cuda(c, s, q, **kw), 1)
+        # Unresolved rays a trip, per tile: ray tests over the passes run
+        # (four a tested block without the gate).
+        per_trip = out.ray_tests.double() / (4 * trips.double()).clamp(min=1)
+        longest = int(trips.argmax())
+        rows.append({
+            "ms": ms, "trips_mean": float(trips.mean()),
+            "trips_p99": float(torch.quantile(trips, 0.99)),
+            "trips_max": int(trips.max()),
+            "us_per_trip": 1e3 * ms / max(int(trips.max()), 1),
+            "ray_tests_per_test": float(out.ray_tests.double().sum())
+            / max(float(out.tests.double().sum()), 1.0),
+            "longest_unresolved": float(per_trip[longest]),
+            "wide_trip_share": float(trips[per_trip > q.tile / 2].sum())
+            / max(float(trips.sum()), 1.0)})
+    inst32["gate" if gate else "off"] = {"frame_ms": frame32_ms,
+                                         "calls": rows}
 print(json.dumps({"frame_ms": frame_ms, "walks": walks, "prepick": prepick,
                   "sub_frame_ms": sub_frame_ms, "sub": sub, "mxu": mxu,
                   "inst_frame_ms": inst_frame_ms, "inst": inst,
+                  "inst32": inst32,
                   "registers": regs, "spill_store_bytes": spills}))
 '''
 
@@ -201,6 +240,20 @@ def main():
                   f"the longest tile; it tested {w['longest_tested']} "
                   f"clusters, {w['longest_ray_tests']} ray tests); re-cull "
                   f"off {w['recull0_ms']:.3f} ms", flush=True)
+        for gate, run in res["inst32"].items():
+            print(f"  instanced frame at {SUB}, subcluster walk, gate {gate}: "
+                  f"{run['frame_ms']:.1f} ms, {len(run['calls'])} walk calls "
+                  f"{sum(w['ms'] for w in run['calls']):.1f} ms", flush=True)
+            for i, w in enumerate(run["calls"]):
+                print(f"    call {i}: {w['ms']:.3f} ms, trips mean "
+                      f"{w['trips_mean']:.1f} p99 {w['trips_p99']:.0f} max "
+                      f"{w['trips_max']} ({w['us_per_trip']:.3f} us a trip "
+                      f"of the longest tile), ray tests per tested block "
+                      f"{w['ray_tests_per_test']:.1f}; unresolved rays a "
+                      f"trip in the longest tile "
+                      f"{w.get('longest_unresolved', 0.0):.1f}, trips in "
+                      f"tiles averaging more than half the tile unresolved "
+                      f"{w.get('wide_trip_share', 0.0):.1%}", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "turns": turns},
                                    indent=1))
