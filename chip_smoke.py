@@ -11,7 +11,9 @@ Phases, each printing its lines:
 3. small: every walk kernel variant against its plain PyTorch version, bit
    for bit, trip counts and resolved flags included (nearest and any-hit;
    pretest on and off; re-cull every 0, 1, 2 and 6 trips; the prepick walk
-   with 2, 3 and 64 picks; trip budgets 1 and 4; cluster sizes 10 (the
+   with 2, 3 and 64 picks, with tiles that settle on their first trip and
+   tiles that use up their picks, every block twice and origins on the
+   ground; trip budgets 1 and 4; cluster sizes 10 (the
    classic walk's scalar pair test), 16 and 128;
    the subcluster walk at cluster sizes 64 and 32 with cull True, False
    and "reverse", planes on and off, the gate on and off, 1, 2 and 3 picks
@@ -29,7 +31,9 @@ Phases, each printing its lines:
    on a ``gblock`` bake) against its plain version at both precisions on
    small scenes (cluster sizes 128, 32 and 16; nearest and any-hit; cull
    True, False and "reverse"; pretest and re-cull; a budget of 8 trips
-   and the phase-1 compaction, card against CPU; chunk_k 2; ignore ids),
+   and the phase-1 compaction, card against CPU; chunk_k 2, alone and with
+   pretest and re-cull; ignore ids; whole warps of every tile dead and
+   only a few live rays a tile, the rows the kernel lists),
    every ray whose winner differs traced to a margin below MXU_EPS or an
    exact-t tie within MXU_RTOL, at most one in 10^4 rays; then the bench
    frame baked with ``gblock`` through ``nearest_hit_fused(mxu=True)`` at
@@ -69,7 +73,9 @@ Phases, each printing its lines:
    subcluster walk), gate off and on, calls against the plain walk on every
    128th tile and, the subcluster walk's, on the 4 tiles with the most
    trips (of the calls whose longest tile walks over 1,000 trips, every
-   fourth one, the gate off and on taking turns), those calls timed with
+   eighth one, the gate off and on taking turns; the gated walk's other
+   such calls against the ungated walk's outputs on every tile, bit for
+   bit but for the counters), those calls timed with
    their bounds, frame ms in turns against the 128 bake (and both bakes'
    block walks with the re-cull off);
 9. pretest frame: the bench frame with ``cull_pretest=True,
@@ -98,8 +104,9 @@ Phases, each printing its lines:
     (32 bake) device ms: the walks against the shading's kernels.
 
 Each phase prints its seconds (``[clock]``).  Then one JSON line with the
-kernels (time, plain time, launches, trips per tile and the least time the
-card could take for the same work) and, last, the device line.  Any failure raises and the script exits nonzero; without
+kernels (time, plain time, launches, trips per tile, the least time the
+card could take for the same work and its share of the time) and, last,
+the device line.  Any failure raises and the script exits nonzero; without
 a CUDA device it exits nonzero before printing a result.  The compiler log
 and every comparison and time go to ``--out`` (default
 ``build/chip_smoke``).
@@ -147,6 +154,13 @@ PEAK_BYTES = 3.35e12
 # t-bound product and compare and the hit flag (any-hit).  The bound counts
 # these alone.
 OPS_PAIR = {False: 43, True: 44}
+GEO_ROWS_USED = 9  # block rows the det and u*det of a pair read
+# What a pair needs by how far the tests' early-outs take it (walk_common.cuh
+# test4): det and its sign test, OPS_DET; with a det that passes its cull's
+# sign test, u*det and its sign test too, OPS_U more; with both passing,
+# the rest of OPS_PAIR.  The bound counts these per pair (``sign_pairs``).
+OPS_DET = 6
+OPS_U = 12
 # The walk's own overheads, printed beside the bound and not part of it:
 # per entry bound (prologue and each re-cull, per cluster) ~80; per pick,
 # 3 per entry scanned; per pretest, 27 per ray.
@@ -181,7 +195,7 @@ INSTANCED_TILE_STRIDE = 128
 # walks: hundreds of re-culls, the lazy re-cull's epochs wrapping).
 INSTANCED_LONGEST = 4
 # [instanced 32]: calls whose longest tile walks more trips than this are
-# deep; the two subcluster settings hold every fourth one's longest tiles.
+# deep; the two subcluster settings hold every eighth one's longest tiles.
 INSTANCED_DEEP = 1000
 # bench.py's BENCH_CSIZE settings of the subcluster frames, and the
 # subcluster walk's shapes run on their queries: the gate and multi-block
@@ -353,6 +367,38 @@ def _group_kernel(walk):
 
 
 @contextlib.contextmanager
+def _counting(count, on_test):
+    """Inside, the plain walks call ``on_test(walk, idx, k, o3, d3, w3,
+    tmax0, cull, any_hit, state, block, lo, hi)`` before each cluster test,
+    ``walk`` holding the chunk's prologue (``tiles``) and its first tile in
+    the query (``base``; the plain walk takes the tiles in chunks).  Yields
+    ``count``."""
+    from raytpu_torch.kernels import fused
+
+    walk = {}
+    prologue, test_cluster = fused._prologue, fused._test_cluster
+
+    def prologue_hook(root, o, *args):
+        walk["base"] = walk.get("next", 0)
+        walk["next"] = walk["base"] + o.shape[0]
+        walk["tiles"] = prologue(root, o, *args)
+        return walk["tiles"]
+
+    def test_hook(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
+                  any_hit, state, lo=0, hi=None, **mxu):
+        on_test(walk, idx, k, o3, d3, w3, tmax0, cull, any_hit, state, block,
+                lo, hi)
+        return test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0,
+                            cull, any_hit, state, lo, hi, **mxu)
+
+    fused._prologue, fused._test_cluster = prologue_hook, test_hook
+    try:
+        yield count
+    finally:
+        fused._prologue, fused._test_cluster = prologue, test_cluster
+
+
+@contextlib.contextmanager
 def reached_pairs(clusters, sampled=None):
     """Inside, the plain walks on ``clusters`` count the pairs the group
     kernel must test: for every sibling pass a trip runs, its lanes times
@@ -365,25 +411,14 @@ def reached_pairs(clusters, sampled=None):
     the count."""
     from raytpu_torch.kernels import fused
 
-    count = [0]
-    walk = {}
-    prologue, test_cluster = fused._prologue, fused._test_cluster
     boxes = clusters.get("sub_aabb", clusters["aabb"][None])
     margin = clusters["root"][6]
 
-    def prologue_hook(root, o, *args):
-        # The plain walk takes the query's tiles in chunks, each from here.
-        walk["base"] = walk.get("next", 0)
-        walk["next"] = walk["base"] + o.shape[0]
-        walk["tiles"] = prologue(root, o, *args)
-        return walk["tiles"]
-
-    def test_hook(block, idx, k, o3, d3, w3, itri, imesh, tmax0, cull,
-                  any_hit, state, lo=0, hi=None, mxu=None):
+    def on_test(walk, idx, k, o3, d3, w3, tmax0, cull, any_hit, state,
+                block, lo, hi):
         keep = None if sampled is None else sampled[walk["base"] + idx]
         if keep is not None and not bool(keep.any()):
-            return test_cluster(block, idx, k, o3, d3, w3, itri, imesh,
-                                tmax0, cull, any_hit, state, lo, hi, mxu)
+            return
         lanes = (block.shape[2] if hi is None else hi) - lo
         box = boxes[lo // lanes][:, k, None]  # (6, m, 1)
         if any_hit:
@@ -404,44 +439,97 @@ def reached_pairs(clusters, sampled=None):
         if keep is not None:
             reach &= keep[:, None]
         count[0] = count[0] + reach.sum() * lanes
-        return test_cluster(block, idx, k, o3, d3, w3, itri, imesh, tmax0,
-                            cull, any_hit, state, lo, hi, mxu)
 
-    fused._prologue, fused._test_cluster = prologue_hook, test_hook
-    try:
+    count = [0]
+    with _counting(count, on_test):
         yield count
-    finally:
-        fused._prologue, fused._test_cluster = prologue, test_cluster
     count[0] = float(count[0])
+
+
+@contextlib.contextmanager
+def sign_pairs(mxu=None):
+    """Inside, the plain classic and prepick walks count the pairs of the
+    rays unresolved at each test (any-hit: without a hit yet) by how far
+    the early-outs of the pair test take them: all of them, those whose det
+    passes its cull's sign test, and those whose det and u*det pass it
+    (walk_common.cuh ``det_ok``, ``u_ok``).  ``mxu``: the plain tensor-core
+    walk at that precision instead, whose tests take every ray that is not
+    dead (any-hit: without a hit yet), with det and u*det as its product
+    rounds them.  Yields the three counts."""
+    from raytpu_torch.kernels import fused
+
+    def on_test(walk, idx, k, o3, d3, w3, tmax0, cull, any_hit, state,
+                block, lo, hi):
+        if mxu:
+            det, udet = fused._pair_values(block, idx, k, o3, d3, w3, lo, hi,
+                                           mxu)[:2]
+            live = walk["tiles"].finite[idx] & (tmax0[idx] > 0.0)
+        else:
+            g = block[k, :GEO_ROWS_USED, lo:hi]
+            col = lambda x: x[idx][:, :, None]  # noqa: E731
+            row = lambda i: g[:, i, None, :]  # noqa: E731
+            det = (col(d3[0]) * row(0) + col(d3[1]) * row(1)
+                   + col(d3[2]) * row(2))
+            udet = (col(w3[0]) * row(6) + col(w3[1]) * row(7)
+                    + col(w3[2]) * row(8) + col(d3[0]) * row(3)
+                    + col(d3[1]) * row(4) + col(d3[2]) * row(5))
+            live = ~walk["tiles"].resolved[idx]
+        if any_hit:
+            live &= state["bc"][idx] < 0
+        live = live[:, :, None].expand_as(det)
+        if cull is True:
+            d_ok, u_ok = det < 0, (udet <= 0) & (det < 0)
+        elif cull == "reverse":
+            d_ok, u_ok = det > 0, (udet >= 0) & (det > 0)
+        else:
+            sgn = torch.where(det < 0, -1.0, 1.0)
+            d_ok, u_ok = det != 0, (udet * sgn >= 0) & (det * sgn > 0)
+        count[0] += int(live.sum())
+        count[1] += int((live & d_ok).sum())
+        count[2] += int((live & u_ok).sum())
+
+    count = [0, 0, 0]
+    with _counting(count, on_test):
+        yield count
 
 
 def compare_counted(clusters, tri_shade, q, what, record, got, whole,
                     sampled, **walk):
-    """compare_walks on the query ``q``, and, for the group kernel, the
-    pairs it must test (``reached_pairs``): (max abs err, plain ms, pairs
-    or None).  ``q`` may hold a subset of the call ``whole``'s tiles;
-    ``sampled`` (None: all) are those counted, and the count is scaled by
-    the call's ray tests over theirs."""
+    """compare_walks on the query ``q``, and what the bound counts: for the
+    group kernel, the pairs it must test (``reached_pairs``), otherwise,
+    on a whole query, the pairs by early-out stage (``sign_pairs``): (max
+    abs err, plain ms, pairs or None, signs or None).  ``q`` may hold a
+    subset of the call ``whole``'s tiles; ``sampled`` (None: all) are
+    those counted, and the count is scaled by the call's ray tests over
+    theirs."""
+    counted = got.ray_tests if sampled is None else got.ray_tests[sampled]
+    scale = (float(whole.ray_tests.double().sum())
+             / max(float(counted.double().sum()), 1.0))
     if not _group_kernel(walk):
-        return (*compare_walks(clusters, tri_shade, q, what, record, got=got,
-                               **walk), None)
+        if sampled is not None:
+            return (*compare_walks(clusters, tri_shade, q, what, record,
+                                   got=got, **walk), None, None)
+        with sign_pairs() as signs:
+            err, plain_ms = compare_walks(clusters, tri_shade, q, what,
+                                          record, got=got, **walk)
+        return err, plain_ms, None, signs
     with reached_pairs(clusters, sampled) as count:
         err, plain_ms = compare_walks(clusters, tri_shade, q, what, record,
                                       got=got, **walk)
-    counted = got.ray_tests if sampled is None else got.ray_tests[sampled]
-    return err, plain_ms, count[0] * (
-        float(whole.ray_tests.double().sum())
-        / max(float(counted.double().sum()), 1.0))
+    return err, plain_ms, count[0] * scale, None
 
 
-def walk_bound(q, out, clusters, walk, pairs=None):
+def walk_bound(q, out, clusters, walk, pairs=None, signs=None):
     """The least time the card could take for one walk call: the
     ray-triangle pairs the function needs (each tested cluster's or, in the
     subcluster walk, each sibling pass's unresolved rays, the walk's
     ``ray_tests``, times the triangles of a cluster or a pass) at OPS_PAIR
     operations each; bytes from each input read once and each output
     written once (the 18 used rows of every cluster block and the cull
-    tables counted once).  ``pairs``: the group kernel's, which tests a
+    tables counted once).  ``signs``: those pairs by early-out stage
+    (``sign_pairs``), each at what it needs: OPS_DET, OPS_DET + OPS_U or
+    OPS_PAIR (without them, from calls timed without their plain walk,
+    every pair at OPS_PAIR).  ``pairs``: the group kernel's, which tests a
     ray's pass only when the ray reaches the pass's box (``reached_pairs``):
     those pairs at OPS_PAIR each and a box test (OPS_PRETEST) for each of
     ``ray_tests``.  The walk's own overheads (entry bounds of the prologue
@@ -464,6 +552,10 @@ def walk_bound(q, out, clusters, walk, pairs=None):
     reculls = ((trips - 1).clamp(min=0) // recull if recull
                else torch.zeros_like(trips))
     ops = float(out.ray_tests.double().sum()) * lanes * OPS_PAIR[any_hit]
+    if signs is not None:
+        n, n_det, n_u = signs
+        ops = (n * OPS_DET + n_det * OPS_U
+               + n_u * (OPS_PAIR[any_hit] - OPS_DET - OPS_U))
     if pairs is not None:
         ops = (pairs * OPS_PAIR[any_hit]
                + float(out.ray_tests.double().sum()) * OPS_PRETEST)
@@ -477,7 +569,9 @@ def walk_bound(q, out, clusters, walk, pairs=None):
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes, "overhead_ops": overhead}
+            "ops": ops, "pairs": pairs, "bytes": nbytes,
+            "overhead_ops": overhead,
+            "counted": "by stage" if signs is not None else "every pair"}
 
 
 def phase_device():
@@ -590,6 +684,56 @@ def _small_rays(rng, n, scene, dev):
     tm[300] = np.nan
     itri = rng.integers(-1, scene.num_tris, size=n).astype(np.int32)
     return tuple(torch.from_numpy(a).to(dev) for a in (o, d, itri, tm))
+
+
+def _prepick_shapes(scene, q, what, record, any_hit):
+    """The prepick walk's two ends against its plain version: tiles that
+    settle on their first trip (rays straight down onto one of the plane's
+    two triangles from just above it, beside the sphere: an any-hit query
+    settles at its hits in the first block) and tiles that use up all their
+    picks and hold rays unresolved (2 picks, the query ``q``); every block
+    twice (tied entries) and origins on the ground (entries of -0 and +0).
+    Returns the largest abs difference and which of the two ends
+    occurred."""
+    from raytpu_torch.kernels.fused import pack_query, prepick_cuda
+
+    dev = q.origin.device
+    n = q.origin.shape[0]
+    rng = np.random.default_rng(5)
+    o = torch.from_numpy(rng.uniform(-2, 2, size=(n, 3)).astype(
+        np.float32)).to(dev)
+    o[:, 0] -= 10.0
+    o[:, 2] += 10.0
+    o[:, 1] = 0.5
+    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(n, 3).contiguous()
+    down = pack_query(o, d, t_max=torch.full((n,), 2.0, device=dev),
+                      tile_size=RAYS_PER_TILE)
+    tables = (scene.clusters, scene.tri_shade)
+    err, shown = 0.0, []
+    for label, qq, picks in ((" prepick settles first trip", down, 64),
+                             (" prepick picks used up", q, 2)):
+        got = prepick_cuda(*tables, qq, cull=True, any_hit=any_hit,
+                           picks=picks)
+        if label.endswith("trip"):
+            shown.append(bool((got.iters == 1).any()
+                              & (got.code >= 0).any()))
+        else:
+            shown.append(bool((got.iters == picks).any()
+                              & (got.resolved == 0).any()))
+        err = max(err, compare_walks(*tables, qq, what + label, record,
+                                     got=got, cull=True, any_hit=any_hit,
+                                     picks=picks)[0])
+    o0 = q.origin.clone()
+    o0[:, 1] = 0.0
+    for label, tabs, qq in (
+            (" prepick duplicated blocks",
+             (_duplicated(scene.clusters), scene.tri_shade), q),
+            (" prepick origins on the ground", tables, q._replace(origin=o0))):
+        for picks in SMALL_PICKS:
+            err = max(err, compare_walks(*tabs, qq, what + label, record,
+                                         cull=False, any_hit=any_hit,
+                                         picks=picks)[0])
+    return err, shown
 
 
 def _duplicated(clusters):
@@ -709,6 +853,7 @@ def phase_small(dev, record):
         err[name] = max(err.get(name, 0.0), e)
 
     rng = np.random.default_rng(0)
+    prepick_ends = [False, False]
     print("[small] kernel vs plain walk on the card, sphere over plane")
     for csize in SMALL_SIZES:
         scene = _small_scene(csize, dev)
@@ -745,6 +890,9 @@ def phase_small(dev, record):
                 note(any_hit, False, compare_walks(
                     *tables, q, what + " prepick", record, cull=True,
                     any_hit=any_hit, picks=picks)[0], prepick=True)
+            e, shown = _prepick_shapes(scene, q, what, record, any_hit)
+            note(any_hit, False, e, prepick=True)
+            prepick_ends = [a or b for a, b in zip(prepick_ends, shown)]
             for trips in SMALL_TRIPS:
                 for pretest, recull in ((False, 0), (True, 2)):
                     note(any_hit, pretest, compare_walks(
@@ -775,6 +923,10 @@ def phase_small(dev, record):
                     raise AssertionError(f"{what} {strategy}: the card "
                                          "differs from the CPU")
 
+    if not all(prepick_ends):
+        raise AssertionError("the prepick walk's tiles never settled on "
+                             "their first trip or never used up their "
+                             f"picks: {prepick_ends}")
     _small_subcluster(dev, record, note)
     # The walk on the card against the CPU: small scenes take the sweep
     # under AUTO, so the walk is named.
@@ -929,18 +1081,40 @@ def tile_subset(q, out, stride, longest=0):
 
 
 def check_recorded(calls, what, record, tile_stride=1, longest=0,
-                   longest_calls=None):
+                   longest_calls=None, against=None):
     """Hold every recorded walk call against the plain walk, on every
     ``tile_stride``-th whole tile (1: all of them) and the ``longest``
     tiles with the most trips (of the calls ``longest_calls``; None: of
-    every call).  Returns the per-call rows (options, max abs err, plain
-    ms, trips, bound of the whole call)."""
+    every call); the calls ``against`` names (index: the row of the same
+    query through another setting of the same kernel, which tests the
+    same pairs) against that row's output instead, every GATE_KEEPS field
+    of every tile bit for bit, their bound counting that row's pairs.
+    Returns the per-call rows (options, max abs err, plain ms, trips,
+    bound of the whole call)."""
     out = []
     for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
+        if against is not None and i in against:
+            ref = against[i]["out"]
+            same = all(getattr(got, f) is None
+                       or _bits_equal(getattr(got, f), getattr(ref, f))
+                       for f in GATE_KEEPS)
+            print(f"  {what} call {i}: {kw} against the same query's "
+                  f"other setting: {'bitwise equal' if same else 'DIFFER'}")
+            record.append({"what": f"{what} call {i} against another "
+                           "setting", "same": same})
+            if not same:
+                raise AssertionError(f"{what} call {i}: the setting changed "
+                                     "a result")
+            out.append({"kw": kw, "err": 0.0, "plain_ms": None,
+                        "iters": got.iters, "out": got, "q": q,
+                        "clusters": clusters, "tri_shade": tri_shade,
+                        **walk_bound(q, got, clusters, kw,
+                                     against[i]["pairs"])})
+            continue
         most = longest if longest_calls is None or i in longest_calls else 0
         cq, cgot, sampled = (q, got, None) if tile_stride == 1 else (
             tile_subset(q, got, tile_stride, most))
-        err, plain_ms, pairs = compare_counted(
+        err, plain_ms, pairs, signs = compare_counted(
             clusters, tri_shade, cq, f"{what} call {i}", record, cgot, got,
             sampled, **kw)
         out.append({"kw": kw, "err": err, "plain_ms": plain_ms,
@@ -948,7 +1122,7 @@ def check_recorded(calls, what, record, tile_stride=1, longest=0,
                     "iters": got.iters, "out": got, "q": q,
                     "clusters": clusters,
                     "tri_shade": tri_shade,
-                    **walk_bound(q, got, clusters, kw, pairs)})
+                    **walk_bound(q, got, clusters, kw, pairs, signs)})
     return out
 
 
@@ -1133,7 +1307,7 @@ def _call_line(row):
              else f", overflow {row['overflow_share']:.4%}")
     return (f"{'any_hit' if kw['any_hit'] else 'nearest'} {walk} "
             f"({live} live rays): kernel {row['kernel_ms']:.3f} ms, bound "
-            f"{row['bound_ms']:.3f} ms, trips mean "
+            f"{row['bound_ms']:.3f} ms ({row['counted']}), trips mean "
             f"{float(out.iters.float().mean()):.2f} max {int(out.iters.max())}"
             f"{share}")
 
@@ -1854,7 +2028,7 @@ def _variant_rows(rows, change, what, record):
     for row in rows:
         kw = {**row["kw"], **change}
         got = subwalk_cuda(row["clusters"], row["tri_shade"], row["q"], **kw)
-        err, plain_ms, pairs = compare_counted(
+        err, plain_ms, pairs, signs = compare_counted(
             row["clusters"], row["tri_shade"], row["q"], what, record, got,
             got, None, **kw)
         base = row["out"]
@@ -1871,7 +2045,8 @@ def _variant_rows(rows, change, what, record):
                     "iters": got.iters, "out": got, "q": row["q"],
                     "clusters": row["clusters"],
                     "tri_shade": row["tri_shade"],
-                    **walk_bound(row["q"], got, row["clusters"], kw, pairs)})
+                    **walk_bound(row["q"], got, row["clusters"], kw, pairs,
+                                 signs)})
     return out
 
 
@@ -2197,15 +2372,23 @@ def phase_instanced32(dev, inst, record):
         # The subcluster walk's calls also on the tiles with the most trips,
         # thousands of picks deep into the key table: every call's whose
         # longest tile walks at most INSTANCED_DEEP trips and, of the deeper
-        # calls, every fourth one, the two settings taking turns (the plain
+        # calls, every eighth one, the two settings taking turns (the plain
         # walk takes ~6 ms a trip there).
         deep = [i for i, c in enumerate(calls)
                 if int(c[4].iters.max()) > INSTANCED_DEEP]
-        turn = deep[1::4] if kw.get("gate") else deep[::4]
+        turn = deep[4::8] if kw.get("gate") else deep[::8]
+        # The gated walk's other deep calls against the ungated walk's
+        # outputs, on every tile (the gate changes only the counters, and
+        # skips only passes that no ray reaches, so the pairs are the
+        # same): their sampled tiles alone take ~50 s of plain walk each.
+        against = ({i: out["subcluster walk"]["rows"][i]
+                    for i in deep if i not in turn}
+                   if kw.get("gate") else None)
         rows = check_recorded(
             calls, f"instanced 32 {label}", record, INSTANCED_TILE_STRIDE,
             longest=INSTANCED_LONGEST if kw else 0,
-            longest_calls=set(range(len(calls))) - set(deep) | set(turn))
+            longest_calls=set(range(len(calls))) - set(deep) | set(turn),
+            against=against)
         if kw:
             for i, row in enumerate(rows):
                 row["kernel_ms"] = _kernel_ms(row, 2)
@@ -2275,12 +2458,16 @@ MXU_SHARE = 1e-4
 # Operations on the CUDA cores per ray-triangle pair of the tensor-core walk,
 # read off mxuwalk.cu: the acceptance (5 compares, 1 add), two id compares
 # and the best-t compare (nearest), or the t-bound product and compare
-# (any-hit).  The tensor-core work: the product's nonzero multiply-adds,
+# (any-hit); by early-out stage (``sign_pairs(mxu=)``), the sign test of
+# det alone (OPS_DET_MXU), then that of u*det (OPS_U_MXU more), then the
+# rest.  The tensor-core work: the product's nonzero multiply-adds,
 # 19 a pair (det 3, u*det and v*det 6 each, t*det 4; the kernel issues 32,
 # one k8 step a column block), 2 FLOP each, x3 for "highest", at the
 # H100's 495 TFLOP/s (TF32, dense).  The coefficients it needs are those
 # 19 floats a lane and the 2 ids.
 OPS_PAIR_MXU = {False: 9, True: 10}
+OPS_DET_MXU = 1
+OPS_U_MXU = 1
 MXU_MACS = 19
 PEAK_TF32 = 495e12
 # The small comparisons: cluster sizes (32: a subcluster bake, walked at
@@ -2292,7 +2479,16 @@ MXU_SHAPES = (
     ("any-hit pretest recull", True, {"pretest": True, "recull_every": 2}),
     ("nearest budget 8", False, {"max_trips": 8}),
     ("any-hit budget 8", True, {"max_trips": 8}),
-    ("nearest chunk_k 2", False, {"chunk_k": 2}))
+    ("nearest chunk_k 2", False, {"chunk_k": 2}),
+    ("nearest chunk_k 2 pretest recull", False,
+     {"chunk_k": 2, "pretest": True, "recull_every": 2}),
+    ("any-hit chunk_k 2 pretest recull", True,
+     {"chunk_k": 2, "pretest": True, "recull_every": 2}))
+# Queries of the tensor-core walk's compacted rows: the first warps of
+# every tile dead (NaN direction) from the start, or only a few live rays
+# a tile.
+MXU_SPARSE = (("whole warps resolved", lambda i: i % RAYS_PER_TILE < 96),
+              ("few unresolved rays", lambda i: i % RAYS_PER_TILE % 37 != 0))
 # Colour change of a pixel, beyond the discrete differences (another
 # primary triangle, another shadow verdict), that would be a fault.
 MXU_PIXEL_TOL = 1e-2
@@ -2500,20 +2696,24 @@ def compare_mxu(clusters, tri_shade, q, what, record, got=None, **walk):
     return abs_err, plain_ms, n_ex
 
 
-def mxu_bound(q, out, clusters, walk):
+def mxu_bound(q, out, clusters, walk, signs):
     """The least time the card could take for one tensor-core walk call:
-    the largest of the tensor-core work (ray tests x 2 * MXU_MACS * C FLOP,
-    x3 for "highest", at 495 TFLOP/s), the CUDA-core work (ray tests x C
-    pairs x OPS_PAIR_MXU) and the bytes (each input read once: the rays,
-    the MXU_MACS nonzero coefficients and the 2 ids of every lane, the cull
+    the largest of the tensor-core work (every pair the walk tests, the
+    first of ``signs``, x 2 * MXU_MACS FLOP, x3 for "highest", at 495
+    TFLOP/s), the CUDA-core work (those pairs by early-out stage,
+    ``sign_pairs(mxu=)``: OPS_DET_MXU each, OPS_U_MXU more for those whose
+    det passes its sign test, the rest of OPS_PAIR_MXU for those whose
+    u*det passes too) and the bytes (each input read once: the rays, the
+    MXU_MACS nonzero coefficients and the 2 ids of every lane, the cull
     tables; each output written once)."""
     any_hit = walk["any_hit"]
     ncg, _, csize = clusters["block"].shape
     r, nt = q.origin.shape[0], q.origin.shape[0] // q.tile
-    tests = float(out.ray_tests.double().sum())
+    n, n_det, n_u = (float(x) for x in signs)
     passes = 3 if walk["mxu"] == "highest" else 1
-    tc = tests * 2 * MXU_MACS * csize * passes
-    cuda = tests * csize * OPS_PAIR_MXU[any_hit]
+    tc = n * 2 * MXU_MACS * passes
+    cuda = (n * OPS_DET_MXU + n_det * OPS_U_MXU
+            + n_u * (OPS_PAIR_MXU[any_hit] - OPS_DET_MXU - OPS_U_MXU))
     nbytes = (r * 36 + ncg * (11 + (MXU_MACS + 2) * csize) * 4 + 32 + nt * 12
               + r * (12 if any_hit else 24))
     if walk.get("rows", True) and not any_hit:
@@ -2660,7 +2860,8 @@ def phase_mxu(dev, card, img_exact, record):
     """[mxu]: mxu_walk_kernel against its plain version on small scenes
     (cluster sizes 128, 32 and 16 with gblock; nearest and any-hit; cull
     True, False and "reverse"; pretest and re-cull; a budget of 8 trips
-    and the phase-1 compaction; chunk_k 2; ignore ids; both precisions), then
+    and the phase-1 compaction; chunk_k 2, alone and with pretest and
+    re-cull; ignore ids; MXU_SPARSE's queries; both precisions), then
     every walk call of the bench frame at 128 with gblock at both
     precisions (counted: the launches of that run), the calls' times and
     bounds, and the frame against the exact walk's."""
@@ -2692,6 +2893,18 @@ def phase_mxu(dev, card, img_exact, record):
                     e, _, n = compare_mxu(
                         *tables, q, f"csize {csize} {prec} {name}", record,
                         cull=cull, any_hit=any_hit, mxu=prec, **kw)
+                    err[prec] = max(err[prec], e)
+                    small_ex += n
+            for name, dead in MXU_SPARSE:
+                idx = torch.arange(o.shape[0], device=dev)
+                ds = torch.where(dead(idx)[:, None], float("nan"), d)
+                for any_hit in (False, True):
+                    q = pack_query(o, ds, ignore_tri=itri,
+                                   t_max=tmax if any_hit else None,
+                                   tile_size=RAYS_PER_TILE)
+                    e, _, n = compare_mxu(
+                        *tables, q, f"csize {csize} {prec} {name}", record,
+                        cull=True, any_hit=any_hit, mxu=prec)
                     err[prec] = max(err[prec], e)
                     small_ex += n
             # The phase-1 compaction: card against CPU through the entry
@@ -2752,13 +2965,14 @@ def phase_mxu(dev, card, img_exact, record):
             trace_colors(flat, cfg, *rays, query=query)
         rows = []
         for i, (clusters, tri_shade, q, kw, got) in enumerate(calls):
-            e, plain_ms, n = compare_mxu(clusters, tri_shade, q,
-                                         f"bench {prec} call {i}", record,
-                                         got=got, **kw)
+            with sign_pairs(mxu=prec) as signs:
+                e, plain_ms, n = compare_mxu(clusters, tri_shade, q,
+                                             f"bench {prec} call {i}",
+                                             record, got=got, **kw)
             row = {"kw": kw, "err": e, "plain_ms": plain_ms, "iters":
                    got.iters, "out": got, "q": q, "clusters": clusters,
                    "tri_shade": tri_shade, "exceptions": n,
-                   **mxu_bound(q, got, clusters, kw)}
+                   **mxu_bound(q, got, clusters, kw, signs)}
             row["kernel_ms"] = _kernel_ms(row, REPS)
             rows.append(row)
             parts = ", ".join(f"{k} {v:.3f}"
@@ -3282,16 +3496,20 @@ def phase_query(dev, card, flat128, rays, img128, record):
 
 def _kernel_entry(name, replaces, launches, err, rows,
                   source="raytpu_torch/kernels/csrc/walk.cu"):
-    """One kernel's line: times, bound and trips summed or averaged over
-    the walk calls ``rows`` it was measured on."""
+    """One kernel's line: times, bound, the bound's share of the time and
+    trips, summed or averaged over the walk calls ``rows`` it was measured
+    on."""
     iters = torch.cat([r["iters"].float() for r in rows])
     n = len(rows)
     bound_by = {r["bound_by"] for r in rows}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in rows) / n,
-            "plain_ms": sum(r["plain_ms"] for r in rows) / n,
+            "plain_ms": statistics.mean(r["plain_ms"] for r in rows
+                                        if r["plain_ms"] is not None),
             "bound_ms": sum(r["bound_ms"] for r in rows) / n,
+            "bound_share": sum(r["bound_ms"] for r in rows)
+            / sum(r["kernel_ms"] for r in rows),
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
             **({"bound_unit": rows[0]["bound_unit"]}
                if "bound_unit" in rows[0] else {}),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from raytpu_torch.device import resolve
+from raytpu_torch.kernels.fused import mxu_table
 from raytpu_torch.scene.types import FlatScene
 
 TABLES = ("tri_shade", "mesh_material", "mesh_convex", "mat_reflect",
@@ -20,7 +21,8 @@ TABLES = ("tri_shade", "mesh_material", "mesh_convex", "mat_reflect",
           "mat_interp_normals", "mat_texture", "textures", "tex_hw")
 # Cluster tables carried across as they are: the tiled query's leaf
 # tables, shadow clearance's triangle-to-block map and, when baked, the
-# matmul pair test's coefficient table.
+# matmul pair test's coefficient table (its TF32 split, ``gsplit``, is
+# derived here as the port's bake derives it).
 CARRIED = ("cluster_min", "cluster_max", "tri_id", "tri_mesh", "tri_v1",
            "tri_e1", "tri_e2", "tri_snormal", "tri_block", "gblock")
 META = ("num_tris", "num_meshes", "num_lights", "light_kinds",
@@ -70,6 +72,8 @@ def flat_scene_from_numpy(arrays: dict, meta: dict,
         clusters["plane"] = sub_plane[0]
     clusters.update({k: cl[k] for k in CARRIED if k in cl})
     clusters = {k: _tensor(a) for k, a in clusters.items()}
+    if "gblock" in clusters:
+        clusters["gsplit"] = mxu_table(clusters["gblock"])
     octree = arrays.get("octree")
     if octree is not None:
         octree = {k: _tensor(a) for k, a in octree.items()}

@@ -34,13 +34,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Rays, tile, cluster tables (the classic walk's: root, aabb, plane, group
 # boxes, block) and sizes, then each entry point's own.
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I]
-# The prepick walk's: rays, tile, root, aabb, block, sizes; cull, picks.
-_PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I]
+# The prepick walk's: rays, tile, root, aabb, group boxes, block, sizes;
+# cull, picks.
+_PREPICK = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I]
 # The group walk's: rays, tile, root, aabb, cull boxes, group boxes, block,
 # sizes, sub_aabb, sub_plane, subk.
 _GROUP = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I]
-# The tensor-core walk's: rays, tile, root, aabb, plane, gblock, sizes.
-_MXU = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I]
+# The tensor-core walk's: rays, tile, root, aabb, plane, group boxes,
+# gsplit, sizes.
+_MXU = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I]
 _SIGNATURES = {
     # tri_shade, cull, pretest, recull_every, max_trips, t, code, u, v, tri,
     # rows, resolved, iters, tests, ray_tests, stream

@@ -152,49 +152,6 @@ __device__ __forceinline__ float copied_entry(const WalkArgs& a,
                      : entry_bound<false>(s, nullptr, 1, 0, b);
 }
 
-// Can a ray reach the box ``bx`` (widened by the root margin) before its
-// cap?  The classic walk's pretest (fused.py::_slab_viable) for one ray:
-// every pair it skips would hit, if at all, at or beyond the ray's best
-// (or t bound), where the strict-min update takes nothing.
-__device__ __forceinline__ bool reaches(const float* bx, float margin,
-                                        const float o[3],
-                                        const float inv_d[3], float cap) {
-  float s_en = -kInf, s_ex = kInf;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float t1 = (bx[c] - margin - o[c]) * inv_d[c];
-    const float t2 = (bx[3 + c] + margin - o[c]) * inv_d[c];
-    s_en = max_nan(s_en, min_nan(t1, t2));
-    s_ex = min_nan(s_ex, max_nan(t1, t2));
-  }
-  return s_en <= s_ex && s_ex >= 0.f && s_en < cap;
-}
-
-// The owner of the consumed key k marks it and its warp refreshes the
-// owner's least key (cv, ck): the owner's keys one a lane, reduced by key,
-// then id (the order of a scan).
-__device__ __forceinline__ void consume(float* ent, int ncg, int k,
-                                        float& cv, int& ck) {
-  const int nt = blockDim.x, t = k % nt, tid = threadIdx.x;
-  if ((tid >> 5) != (t >> 5)) return;
-  if (tid == t) ent[k] = consumed();
-  __syncwarp();
-  float v = kInf;
-  int m = INT_MAX;
-  for (int j = t + nt * (tid & 31); j < ncg; j += 32 * nt) {
-    const float e = ent[j];
-    if (e < v) {
-      v = e;
-      m = j;
-    }
-  }
-  warp_lexmin(v, m);
-  if (tid == t) {
-    cv = v;
-    ck = m;
-  }
-}
-
 // The next group: K picks into gv/gk (kInf and INT_MAX past the end), each
 // the least key left (lowest id on equal keys), consumed.  As soon as a
 // block is picked every thread starts copying its share of the block's 18
@@ -272,38 +229,12 @@ __global__ void __maxnreg__(80) subwalk_kernel(WalkArgs a) {
   int ck = INT_MAX;
   {
     // The block keys for the tile's beam, pruned at the largest bound of
-    // the unresolved rays.  A warp takes a group of 32 consecutive blocks
-    // (its lanes are their owners), two groups an iteration, so that their
-    // loads overlap; a group whose box the beam cannot reach gets kInf keys
-    // without a look at its blocks.
+    // the unresolved rays (cull_entries).
     const float wcap = block_reduce(res ? -kInf : tmax0, MaxNanOp(), red_f);
     const Beam bm = make_beam(ray.o, ray.d, ray.finite, wcap, red_f);
-    const int lane = tid & 31, nw = nt >> 5, ng = (a.ncg + 31) >> 5;
-    for (int g = tid >> 5; g < ng; g += 2 * nw) {
-      const int g1 = g + nw < ng ? g + nw : g;
-      const bool r0 =
-          entry_bound<false>(a.group_aabb, nullptr, ng, g, bm) < kInf;
-      const bool r1 =
-          entry_bound<false>(a.group_aabb, nullptr, ng, g1, bm) < kInf;
-      const int j0 = 32 * g + lane;
-      const int j1 = g1 == g ? a.ncg : 32 * g1 + lane;
-      const float e0 = r0 && j0 < a.ncg ? block_key<SUBK>(a, j0, bm) : kInf;
-      const float e1 = r1 && j1 < a.ncg ? block_key<SUBK>(a, j1, bm) : kInf;
-      if (j0 < a.ncg) {
-        ent[j0] = e0;
-        if (e0 < cv) {
-          cv = e0;
-          ck = j0;
-        }
-      }
-      if (j1 < a.ncg) {
-        ent[j1] = e1;
-        if (e1 < cv) {
-          cv = e1;
-          ck = j1;
-        }
-      }
-    }
+    cull_entries(
+        a, bm, ent, [&](int j) { return block_key<SUBK>(a, j, bm); },
+        [](int) {}, cv, ck);
     if (SUBK > 1 && tid == 0) beam = bm;
   }
 
@@ -369,22 +300,10 @@ __global__ void __maxnreg__(80) subwalk_kernel(WalkArgs a) {
     // Which sibling passes run: bit j * SUBK + h, the same in every thread.
     unsigned run = 0;
     for (int j = 0; j < K && g_v[j] < kInf; ++j) {
-      if (PRETEST) {
-        // Can this ray reach the block's box before its cap?
-        const int k = g_k[j];
-        float s_en = -kInf, s_ex = kInf;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float mn = a.aabb[c * a.ncg + k] - margin;
-          const float mx = a.aabb[(3 + c) * a.ncg + k] + margin;
-          const float t1 = (mn - o[c]) * inv_d[c];
-          const float t2 = (mx - o[c]) * inv_d[c];
-          s_en = max_nan(s_en, min_nan(t1, t2));
-          s_ex = min_nan(s_ex, max_nan(t1, t2));
-        }
-        if (!__syncthreads_or(s_en <= s_ex && s_ex >= 0.f && s_en < cap_r)) {
-          continue;
-        }
+      // Can any ray reach the block's box before its cap?
+      if (PRETEST && !__syncthreads_or(reaches(a.aabb + g_k[j], margin, o,
+                                                inv_d, cap_r, a.ncg))) {
+        continue;
       }
       for (int h = 0; h < SUBK; ++h) {
         if (!a.gate || (SUBK == 1 ? g_v[j] : e_s[j * SUBK + h]) < capmax) {
@@ -537,19 +456,8 @@ __global__ void __maxnreg__(80) subwalk_kernel(WalkArgs a) {
       const float wcap =
           block_reduce(res ? -kInf : min_nan(best.t, tmax0), MaxNanOp(), red_f);
       const Beam bm = make_beam(o, d, ray.finite && !res, wcap, red_f);
-      cv = kInf;
-      ck = INT_MAX;
-      for (int j = tid; j < a.ncg; j += nt) {
-        float e = ent[j];
-        if (e != consumed()) {
-          e = sib_entry(a, 0, j, bm);
-          ent[j] = e;
-        }
-        if (e < cv) {
-          cv = e;
-          ck = j;
-        }
-      }
+      recull_entries(a, ent, [&](int j) { return sib_entry(a, 0, j, bm); },
+                     cv, ck);
     }
     cur = nv;
     b ^= 1;

@@ -45,14 +45,25 @@
 // prepick_kernel: the same prologue with slab-only entry bounds (the
 // reference gives the fitted-plane rows only to its classic walk, and the
 // plane changes the visiting order, so exact-t ties would resolve
-// differently), then a pick phase that drains up to ``picks`` (F) clusters
-// front to back into shared memory (F block-wide argmins, lowest id on
-// equal entries) and the tail bound (the least entry left unpicked; FLOAT_MAX
-// once drained), then a walk over exactly those picks with no pick per trip.
-// Each ray settles against the next pick's entry, or the tail bound after
-// the last pick.  Rays of a tile with more than F feasible clusters may come
-// back unresolved, holding a true candidate; kernels/fused.py finishes them
-// with an unbudgeted classic walk (the rescue pass).  No shade rows.
+// differently), then a walk over the first ``picks`` (F) clusters front to
+// back (lowest id on equal entries), with no re-cull: each ray settles
+// against the next pick's entry, or the tail bound (the least entry left
+// unpicked; FLOAT_MAX once drained) after the last pick.  Rays of a tile
+// with more than F feasible clusters may come back unresolved, holding a
+// true candidate; kernels/fused.py finishes them with an unbudgeted classic
+// walk (the rescue pass).  No shade rows.  The reference drains the F picks
+// before its walk; measured per trip with clock64 stamps (walk_split.py
+// --kernel prepick) that drain, a full scan of the entry table a pick, took
+// 14-17% of the bench frame's block clocks, the prologue 19-23% and scalar
+// pair tests 57-59%, while a tile walks 7.5 of its 64 picks on average.
+// Entries never change after the prologue, so pick s + 1 (or the tail bound)
+// is the same whether it is drained up front or taken just before trip s
+// settles: the kernel takes it then, from the threads' least entries (two
+// REDUX reductions and a barrier, walk_common.cuh block_lexmin and consume),
+// and copies its rows with cp.async while pick s is tested.  The tests are
+// the classic walk's: float4 rows with the warp early-outs, spread over the
+// idle threads when few rays are unresolved; the prologue is the classic
+// walk's group pre-cull (cull_entries).
 //
 // Every walk writes the per-ray resolved flag: 1 once the ray is proven
 // (settled, dead from the start, or its tile's entries ran out), 0 for a ray
@@ -125,66 +136,12 @@ namespace {
 
 // ---- walk_kernel's parts ---------------------------------------------------
 
-constexpr int kSlotWords = 9;  // a tail-mode ray: o, d, t bound, ignore ids
-
 struct Own {  // the entries a thread owns: ids tid, tid + threads, ...
   float cv;   // least entry of the newest epoch (kInf: none)
   int ck;     // its id (INT_MAX: none)
   float sv;   // least entry of an older epoch
   int sk;
 };
-
-// The beam of the rays with m set, pruned at ``cap``'s block maximum, into
-// shared memory (fused.py::_tile_bounds_lm): the least and greatest origin
-// and direction of those rays per axis, by warp reductions of the values'
-// ordered keys.  Their zeros' signs may differ from a sequential min/max's;
-// no entry bound depends on them.  The caps are never NaN.  Every thread
-// calls it; it ends in a barrier.
-__device__ void beam_to_smem(const float o[3], const float d[3], bool m,
-                             float cap, Beam& beam, unsigned* red) {
-  unsigned v[13];
-  v[0] = __reduce_max_sync(0xffffffffu, ordered(cap));
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    v[1 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? o[k] : kInf));
-    v[4 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? o[k] : -kInf));
-    v[7 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? d[k] : kInf));
-    v[10 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? d[k] : -kInf));
-  }
-  const int lane = threadIdx.x & 31;
-  __syncthreads();  // the previous reader of ``red`` and ``beam`` is done
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 13; ++i) red[i * 32 + (threadIdx.x >> 5)] = v[i];
-  }
-  const bool any = __syncthreads_or(m);
-  if (threadIdx.x < 32) {
-    const bool in = lane < static_cast<int>(blockDim.x >> 5);
-#pragma unroll
-    for (int i = 0; i < 13; ++i) {
-      const bool is_min = (i >= 1 && i < 4) || (i >= 7 && i < 10);
-      const unsigned x = in ? red[i * 32 + lane] : (is_min ? ~0u : 0u);
-      v[i] = is_min ? __reduce_min_sync(0xffffffffu, x)
-                    : __reduce_max_sync(0xffffffffu, x);
-    }
-    if (lane == 0) {
-      beam.wcap = unordered(v[0]);
-      beam.any = any;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        beam.o_min[k] = any ? unordered(v[1 + k]) : 0.f;
-        beam.o_max[k] = any ? unordered(v[4 + k]) : 0.f;
-        const float dmn = any ? unordered(v[7 + k]) : 1.f;
-        const float dmx = any ? unordered(v[10 + k]) : 1.f;
-        beam.d_min[k] = dmn;
-        beam.d_max[k] = dmx;
-        beam.inv_lo[k] = 1.0f / (dmn == 0.f ? 1.f : dmn);
-        beam.inv_hi[k] = 1.0f / (dmx == 0.f ? 1.f : dmx);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // Block-wide least (v, k) and least (u, l), each by entry, then id; the
 // second comes back in ``second``.  Every thread calls it, with scratch as
@@ -424,50 +381,23 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
   // The tile's beam over its finite rays (fused.py::_tile_bounds_lm),
   // pruned at the largest bound of the unresolved rays, so a dead ray's NaN
   // bound cannot poison its tile; then every entry and the thread's least
-  // one.  A warp takes a group of 32 consecutive clusters (its lanes are
-  // the groups' owners), two groups an iteration; a group whose box the
-  // beam cannot reach gets +inf entries without a look at its clusters:
-  // their slab intervals lie inside the group's, so each is infeasible too.
+  // one, a group of 32 clusters whose box the beam cannot reach without a
+  // look at its clusters (cull_entries).
   beam_to_smem(o, d, finite, res ? -kInf : tmax0, beam,
                reinterpret_cast<unsigned*>(red_f));
   {
     // The beam in registers: the bounds below would otherwise read it
     // from shared memory, behind the other blocks' pair-test loads.
     const Beam bm = beam;
-    float cv = kInf;
-    int ck = INT_MAX;
-    const int lane = tid & 31, nw = nt >> 5, ng = (a.ncg + 31) >> 5;
-    for (int g = tid >> 5; g < ng; g += 2 * nw) {
-      const int g1 = g + nw < ng ? g + nw : g;
-      const bool r0 =
-          entry_bound<false>(a.group_aabb, nullptr, ng, g, bm) < kInf;
-      const bool r1 =
-          entry_bound<false>(a.group_aabb, nullptr, ng, g1, bm) < kInf;
-      const int j0 = 32 * g + lane;
-      const int j1 = g1 == g ? a.ncg : 32 * g1 + lane;
-      const float e0 = r0 && j0 < a.ncg
-                           ? entry_of(a.aabb, a.plane, a.ncg, j0, bm)
-                           : kInf;
-      const float e1 = r1 && j1 < a.ncg
-                           ? entry_of(a.aabb, a.plane, a.ncg, j1, bm)
-                           : kInf;
-      if (j0 < a.ncg) {
-        ent[j0] = e0;
-        if (lazy) ep[j0] = 0;
-        if (e0 < cv) {
-          cv = e0;
-          ck = j0;
-        }
-      }
-      if (j1 < a.ncg) {
-        ent[j1] = e1;
-        if (lazy) ep[j1] = 0;
-        if (e1 < cv) {
-          cv = e1;
-          ck = j1;
-        }
-      }
-    }
+    float cv;
+    int ck;
+    cull_entries(
+        a, bm, ent,
+        [&](int j) { return entry_of(a.aabb, a.plane, a.ncg, j, bm); },
+        [&](int j) {
+          if (lazy) ep[j] = 0;
+        },
+        cv, ck);
     own[tid] = {cv, ck, kInf, INT_MAX};
   }
   unsigned epoch = 0;
@@ -526,75 +456,8 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
                                      itri, imesh, base, best);
       } else if (U > 0) {
         // Tail: the U unresolved rays' tests spread over G threads each.
-        int G = 32;
-        while (U * G > nt) G >>= 1;
-        const unsigned bal = __ballot_sync(0xffffffffu, !res);
-        const int lane = tid & 31, warp = tid >> 5;
-        if (lane == 0) red_i[warp] = __popc(bal);
-        __syncthreads();
-        int slot = __popc(bal & ((1u << lane) - 1));
-        for (int w = 0; w < warp; ++w) slot += red_i[w];
-        if (!res) {
-          float* sl = slots + slot * kSlotWords;
-          sl[0] = o[0];
-          sl[1] = o[1];
-          sl[2] = o[2];
-          sl[3] = d[0];
-          sl[4] = d[1];
-          sl[5] = d[2];
-          sl[6] = tmax0;
-          sl[7] = __int_as_float(itri);
-          sl[8] = __int_as_float(imesh);
-        }
-        __syncthreads();
-        const int s = tid / G, g = tid % G;
-        Best lb{kInf, -1, 0.f, 0.f, 1.f, -1};
-        float* sl = slots + s * kSlotWords;
-        if (s < U) {
-          const float so[3] = {sl[0], sl[1], sl[2]};
-          const float sd[3] = {sl[3], sl[4], sl[5]};
-          test_lanes<ANY_HIT, CULL, 0>(
-              geo, C, vec, 0, C, g, G, so, sd, sl[6], __float_as_int(sl[7]),
-              __float_as_int(sl[8]), 0, lb);
-        }
-        // The group's least (t, lane); any-hit: whether any lane hit.
-        for (int off = G >> 1; off > 0; off >>= 1) {
-          const float ot = __shfl_xor_sync(0xffffffffu, lb.t, off);
-          const int oc = __shfl_xor_sync(0xffffffffu, lb.code, off);
-          if (ANY_HIT) {
-            lb.code = lb.code > oc ? lb.code : oc;
-          } else {
-            const float ou = __shfl_xor_sync(0xffffffffu, lb.u, off);
-            const float ov = __shfl_xor_sync(0xffffffffu, lb.v, off);
-            const float odet = __shfl_xor_sync(0xffffffffu, lb.det, off);
-            const int otri = __shfl_xor_sync(0xffffffffu, lb.tri, off);
-            // Lanes that hit nothing carry code -1: rank them last.
-            const unsigned mine = static_cast<unsigned>(lb.code);
-            const unsigned theirs = static_cast<unsigned>(oc);
-            if (ot < lb.t || (ot == lb.t && theirs < mine)) {
-              lb = {ot, oc, ou, ov, odet, otri};
-            }
-          }
-        }
-        if (g == 0 && s < U) {
-          sl[0] = lb.t;
-          sl[1] = __int_as_float(lb.code);
-          sl[2] = lb.u;
-          sl[3] = lb.v;
-          sl[4] = lb.det;
-          sl[5] = __int_as_float(lb.tri);
-        }
-        __syncthreads();
-        if (!res) {
-          const float* mine = slots + slot * kSlotWords;
-          const int code = __float_as_int(mine[1]);
-          if (ANY_HIT) {
-            if (code >= 0) best.code = 0;
-          } else if (mine[0] < best.t) {
-            best = {mine[0], base + code, mine[2], mine[3], mine[4],
-                    __float_as_int(mine[5])};
-          }
-        }
+        spread_tests<ANY_HIT, CULL>(geo, C, vec, U, res, slots, red_i, o, d,
+                                    tmax0, itri, imesh, base, best);
       }
     }
     res = res || (ANY_HIT ? (best.code >= 0 || tmax0 <= nxt.v)
@@ -708,16 +571,24 @@ __global__ void __maxnreg__(80) walk_kernel(WalkArgs a) {
   }
 }
 
+// At most 80 registers a thread: three blocks of 256 threads an SM, as the
+// classic walk.
 template <bool ANY_HIT, int CULL>
-__global__ void prepick_kernel(WalkArgs a) {
-  extern __shared__ float smem[];
+__global__ void __maxnreg__(80) prepick_kernel(WalkArgs a) {
+  // The pair tests' early-outs (test4): the det vote pays where many pairs
+  // face away, as for shadow rays.
+  constexpr int kEarly = ANY_HIT ? 2 : 1;
+  extern __shared__ __align__(16) float smem[];
   const int C = a.csize, F = a.picks;
-  float* ent = smem;                  // (ncg,) entry bounds
-  float* geo = ent + a.ncg;           // (18, csize) staged cluster block
-  float* qv = geo + kGeoRows * C;     // (F,) picked entries, non-decreasing
-  int* qk = reinterpret_cast<int*>(qv + F);  // (F,) picked cluster ids
-  __shared__ float red_f[32];
+  float* ent = smem;                         // (ncg,) entry bounds
+  float* geo0 = smem + (a.ncg + 3) / 4 * 4;  // 2 x (18, C) staged clusters
+  float* slots = geo0 + 2 * kGeoRows * C;    // (nt / 2, 9) spread rays
+  __shared__ float red_f[13 * 32];
   __shared__ int red_i[32];
+  __shared__ float pick_f[2 * 32];  // the picks' two scratch buffers
+  __shared__ int pick_i[2 * 32];
+  __shared__ Beam beam;
+  unsigned parity = 0;
 
   const int tid = threadIdx.x;
   const bool active = tid < a.ts;
@@ -725,56 +596,80 @@ __global__ void prepick_kernel(WalkArgs a) {
   const Ray ray = load_ray(a, r, active);
   const float tmax0 = ray.tmax0;
   bool res = !ray.finite || !(tmax0 > 0.f);
-  fill_entries<false>(a, ray, res, ent, red_f);
-
-  // Pick phase (fused.py:810-826): up to F picks front to back, then the
-  // tail bound, the least entry left (kInf once drained).
-  int m = 0;
-  float tail = kInf;
-  while (true) {
-    const Pick p = pick_next(ent, a.ncg, red_f, red_i);
-    __syncthreads();  // thread 0's consumed mark before the next scan
-    if (!(p.v < kInf)) break;
-    if (m == F) {
-      tail = p.v;
-      break;
-    }
-    if (tid == 0) {
-      qv[m] = p.v;
-      qk[m] = p.k;
-    }
-    ++m;
+  const bool vec = C % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.block) & 15) == 0;
+  // Slab-only entries of the tile's beam, pruned at the largest bound of
+  // the unresolved rays, and each thread's least one.
+  beam_to_smem(ray.o, ray.d, ray.finite, res ? -kInf : tmax0, beam,
+               reinterpret_cast<unsigned*>(red_f));
+  float cv;
+  int ck;
+  {
+    const Beam bm = beam;
+    cull_entries(
+        a, bm, ent,
+        [&](int j) { return entry_bound<false>(a.aabb, nullptr, a.ncg, j, bm); },
+        [](int) {}, cv, ck);
   }
-  __syncthreads();
 
   Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};
-  const float* o = ray.o;
-  const float* d = ray.d;
-  const float w[3] = {d[1] * o[2] - d[2] * o[1], d[2] * o[0] - d[0] * o[2],
-                      d[0] * o[1] - d[1] * o[0]};
+  // Pick s: the least entry left (lowest id on equal entries), consumed;
+  // its rows go into buffer s % 2.
+  auto pick = [&](float* geo, bool take) {
+    const Pick p = block_lexmin(cv, ck, pick_f + 32 * parity,
+                                pick_i + 32 * parity);
+    parity ^= 1u;
+    if (take && p.v < kInf) {
+      consume(ent, a.ncg, p.k, cv, ck);
+      stage_async(a, p.k, geo, vec);
+    }
+    cp_async_commit();
+    return p;
+  };
+  Pick cur = pick(geo0, true);
   // No feasible cluster: nothing to hit, every ray is proven.
-  if (m == 0) res = true;
-  int trips = 0, ray_tests = 0;
-  bool settled = __syncthreads_and(res);
-  // Walk exactly the picks (fused.py:862-933).
-  for (int s = 0; s < m && !settled; ++s) {
+  if (!(cur.v < kInf)) res = true;
+  int trips = 0, ray_tests = 0, b = 0;
+  bool walk = cur.v < kInf && !__syncthreads_and(res);
+  // Walk exactly the first F picks (fused.py:862-933).
+  for (int s = 0; walk; ++s) {
     ++trips;
-    const int k = qk[s];
-    ray_tests += stage(a, k, geo, res);
-    test_staged<ANY_HIT, CULL>(geo, C, 0, C, k, ray, w, best);
-    const float vn = s + 1 < m ? qv[s + 1] : tail;
+    // Pick ahead: pick s + 1 (the tail bound once s + 1 = F), its rows
+    // copied while pick s is tested.
+    const bool more = s + 1 < F;
+    const Pick nxt = pick(geo0 + (b ^ 1) * kGeoRows * C, more);
+    cp_async_wait<1>();
+    const int U = __syncthreads_count(!res);
+    ray_tests += U;
+    const float* geo = geo0 + b * kGeoRows * C;
+    const int base = cur.k * C;
+    if (2 * U > static_cast<int>(blockDim.x)) {
+      test_lanes<ANY_HIT, CULL, kEarly>(geo, C, vec, 0, C, 0, 1, ray.o,
+                                        ray.d, tmax0, ray.itri, ray.imesh,
+                                        base, best);
+    } else {
+      spread_tests<ANY_HIT, CULL>(geo, C, vec, U, res, slots, red_i, ray.o,
+                                  ray.d, tmax0, ray.itri, ray.imesh, base,
+                                  best);
+    }
+    const float vn = nxt.v < kInf ? nxt.v : kInf;
     res = res || (ANY_HIT ? (best.code >= 0 || tmax0 <= vn) : (best.t <= vn));
-    settled = __syncthreads_and(res);
+    walk = more && nxt.v < kInf && !__syncthreads_and(res);
+    cur = nxt;
+    b ^= 1;
   }
+  cp_async_wait<0>();
   write_out<ANY_HIT>(a, r, active, best, res, trips, trips, ray_tests);
 }
 
-// Dynamic shared memory of a prepick block: the entry table, one staged
-// cluster block and F picks (entry and id).
+// Dynamic shared memory of a prepick block (kernels/fused.py::
+// _smem_bytes): the entry table (padded to 4 floats), two staged clusters
+// and the spread rays of half the block.
 size_t prepick_smem_bytes(const WalkArgs& a) {
-  return sizeof(float) * (static_cast<size_t>(a.ncg) +
-                          static_cast<size_t>(kGeoRows) * a.csize) +
-         8 * static_cast<size_t>(a.picks);
+  const size_t nt = (a.ts + 31) / 32 * 32;
+  return sizeof(float) * ((static_cast<size_t>(a.ncg) + 3) / 4 * 4 +
+                          2 * static_cast<size_t>(kGeoRows) * a.csize +
+                          nt / 2 * kSlotWords);
 }
 
 template <typename Kernel>
@@ -867,12 +762,14 @@ extern "C" int rt_any_hit(
 extern "C" int rt_prepick_nearest(
     const float* origin, const float* direction, const float* tmax,
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
-    const float* root, const float* aabb, const float* block, int ncg,
-    int csize, int cull, int picks, float* out_t, int* out_code,
-    float* out_u, float* out_v, int* out_tri, int* out_res, int* out_iters,
-    int* out_tests, int* out_ray_tests, void* stream) {
+    const float* root, const float* aabb, const float* group_aabb,
+    const float* block, int ncg, int csize, int cull, int picks,
+    float* out_t, int* out_code, float* out_u, float* out_v, int* out_tri,
+    int* out_res, int* out_iters, int* out_tests, int* out_ray_tests,
+    void* stream) {
   WalkArgs a = walk_args(origin, direction, tmax, ignore_tri, ignore_mesh,
                          ts, root, aabb, block, ncg, csize);
+  a.group_aabb = group_aabb;
   a.picks = picks;
   set_outputs(a, out_t, out_code, out_res, out_iters, out_tests,
               out_ray_tests);
@@ -886,12 +783,13 @@ extern "C" int rt_prepick_nearest(
 extern "C" int rt_prepick_any_hit(
     const float* origin, const float* direction, const float* tmax,
     const int* ignore_tri, const int* ignore_mesh, int n_rays, int ts,
-    const float* root, const float* aabb, const float* block, int ncg,
-    int csize, int cull, int picks, float* out_t, int* out_code,
-    int* out_res, int* out_iters, int* out_tests, int* out_ray_tests,
-    void* stream) {
+    const float* root, const float* aabb, const float* group_aabb,
+    const float* block, int ncg, int csize, int cull, int picks,
+    float* out_t, int* out_code, int* out_res, int* out_iters,
+    int* out_tests, int* out_ray_tests, void* stream) {
   WalkArgs a = walk_args(origin, direction, tmax, ignore_tri, ignore_mesh,
                          ts, root, aabb, block, ncg, csize);
+  a.group_aabb = group_aabb;
   a.picks = picks;
   set_outputs(a, out_t, out_code, out_res, out_iters, out_tests,
               out_ray_tests);

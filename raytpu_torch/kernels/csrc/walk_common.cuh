@@ -1,6 +1,7 @@
 // Shared parts of the cluster walk kernels (walk.cu, subwalk.cu,
 // mxuwalk.cu): the launch arguments, the entry bounds, the block-wide
-// reductions and picks, the per-ray prologue and the ray-triangle test.
+// reductions and picks, the per-ray prologue, the ray-triangle tests and
+// the tests of few unresolved rays.
 // Bitwise agreement with the plain PyTorch walks (kernels/fused.py) rests on
 // the same operations in the same order, IEEE division, NaN-propagating
 // min/max where PyTorch's minimum/maximum propagate NaN, and building with
@@ -240,49 +241,6 @@ struct Pick {
   int k;    // cluster id
 };
 
-// Nearest remaining entry, lowest cluster id on equal entries; consumes it.
-// The caller puts a barrier between two calls with nothing else between.
-__device__ Pick pick_next(float* ent, int ncg, float* red_f, int* red_i) {
-  float v = kInf;
-  int k = INT_MAX;
-  for (int j = threadIdx.x; j < ncg; j += blockDim.x) {
-    const float e = ent[j];
-    if (e < v) {
-      v = e;
-      k = j;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int ok = __shfl_xor_sync(0xffffffffu, k, off);
-    if (ov < v || (ov == v && ok < k)) {
-      v = ov;
-      k = ok;
-    }
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) {
-    red_f[threadIdx.x >> 5] = v;
-    red_i[threadIdx.x >> 5] = k;
-  }
-  __syncthreads();
-  v = red_f[0];
-  k = red_i[0];
-  const int nw = blockDim.x >> 5;
-  for (int w = 1; w < nw; ++w) {
-    if (red_f[w] < v || (red_f[w] == v && red_i[w] < k)) {
-      v = red_f[w];
-      k = red_i[w];
-    }
-  }
-  if (threadIdx.x == 0 && v < kInf) ent[k] = consumed();
-  return {v, k};
-}
-
-// The steps of the prepick and group walks (walk_kernel has its own, see
-// its note).
-
 // One thread's ray (fused.py::_walk_tiles prologue).
 struct Ray {
   float o[3], d[3];
@@ -332,21 +290,6 @@ __device__ Ray load_ray(const WalkArgs& a, size_t r, bool active) {
   return ray;
 }
 
-// The entry table of the tile's beam over its finite rays
-// (fused.py::_tile_bounds_lm), pruned at the largest bound of the
-// unresolved rays, so a dead ray's NaN bound cannot poison its tile.  Every
-// thread calls it; it ends in a barrier.
-template <bool PLANE>
-__device__ void fill_entries(const WalkArgs& a, const Ray& ray, bool res,
-                             float* ent, float* red_f) {
-  const float wcap = block_reduce(res ? -kInf : ray.tmax0, MaxNanOp(), red_f);
-  const Beam b = make_beam(ray.o, ray.d, ray.finite, wcap, red_f);
-  for (int j = threadIdx.x; j < a.ncg; j += blockDim.x) {
-    ent[j] = entry_bound<PLANE>(a.aabb, a.plane, a.ncg, j, b);
-  }
-  __syncthreads();
-}
-
 // Per-ray best (fused.py::_walk_tiles state).
 struct Best {
   float t;
@@ -355,57 +298,8 @@ struct Best {
   int tri;
 };
 
-// Stage cluster k's geometry rows into shared memory; every thread calls
-// it.  Returns the tile's unresolved rays (the barrier after the staging).
-__device__ int stage(const WalkArgs& a, int k, float* geo, bool res) {
-  const int C = a.csize;
-  const float* src = a.block + static_cast<size_t>(k) * kBlockRows * C;
-  for (int e = threadIdx.x; e < kGeoRows * C; e += blockDim.x) geo[e] = src[e];
-  return __syncthreads_count(!res);
-}
-
-// Test the ray against lanes lo to hi - 1 of the staged cluster k, in lane
-// order (fused.py::_test_cluster).
-template <bool ANY_HIT, int CULL>
-__device__ __forceinline__ void test_staged(const float* geo, int C, int lo,
-                                            int hi, int k, const Ray& ray,
-                                            const float w[3], Best& best) {
-  const float* o = ray.o;
-  const float* d = ray.d;
-  for (int j = lo; j < hi; ++j) {
-    const float nx = geo[j], ny = geo[C + j], nz = geo[2 * C + j];
-    const float det = d[0] * nx + d[1] * ny + d[2] * nz;
-    const float udet = w[0] * geo[6 * C + j] + w[1] * geo[7 * C + j] +
-                       w[2] * geo[8 * C + j] + d[0] * geo[3 * C + j] +
-                       d[1] * geo[4 * C + j] + d[2] * geo[5 * C + j];
-    const float vdet = w[0] * geo[12 * C + j] + w[1] * geo[13 * C + j] +
-                       w[2] * geo[14 * C + j] + d[0] * geo[9 * C + j] +
-                       d[1] * geo[10 * C + j] + d[2] * geo[11 * C + j];
-    const float tdet = geo[15 * C + j] - (o[0] * nx + o[1] * ny + o[2] * nz);
-    const int tri_id = __float_as_int(geo[16 * C + j]);
-    const int mesh_id = __float_as_int(geo[17 * C + j]);
-    const bool keep = tri_id != ray.itri && mesh_id != ray.imesh;
-    if (ANY_HIT) {
-      if (keep && accept_within<CULL>(det, udet, vdet, tdet, ray.tmax0)) {
-        best.code = 0;
-      }
-    } else {
-      const float dist =
-          (keep && accept<CULL>(det, udet, vdet, tdet)) ? tdet / det : kInf;
-      if (dist < best.t) {
-        best.t = dist;
-        best.code = k * C + j;
-        best.u = udet;
-        best.v = vdet;
-        best.det = det;
-        best.tri = tri_id;
-      }
-    }
-  }
-}
-
-// ---- Shared by the classic and group walks: asynchronous copies, picks
-// from per-thread least entries, the float4 pair tests ----------------------
+// ---- Asynchronous copies, picks from per-thread least entries, the
+// prologue's culled entry table, the float4 pair tests ----------------------
 
 __device__ __forceinline__ bool lex_less(float v, int k, float w, int l) {
   return v < w || (v == w && k < l);
@@ -459,6 +353,58 @@ __device__ __forceinline__ float unordered(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// The beam of the rays with m set, pruned at ``cap``'s block maximum, into
+// shared memory (fused.py::_tile_bounds_lm): the least and greatest origin
+// and direction of those rays per axis, by warp reductions of the values'
+// ordered keys.  Their zeros' signs may differ from a sequential min/max's;
+// no entry bound depends on them.  The caps are never NaN.  Every thread
+// calls it; it ends in a barrier.
+__device__ void beam_to_smem(const float o[3], const float d[3], bool m,
+                             float cap, Beam& beam, unsigned* red) {
+  unsigned v[13];
+  v[0] = __reduce_max_sync(0xffffffffu, ordered(cap));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[1 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? o[k] : kInf));
+    v[4 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? o[k] : -kInf));
+    v[7 + k] = __reduce_min_sync(0xffffffffu, ordered(m ? d[k] : kInf));
+    v[10 + k] = __reduce_max_sync(0xffffffffu, ordered(m ? d[k] : -kInf));
+  }
+  const int lane = threadIdx.x & 31;
+  __syncthreads();  // the previous reader of ``red`` and ``beam`` is done
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 13; ++i) red[i * 32 + (threadIdx.x >> 5)] = v[i];
+  }
+  const bool any = __syncthreads_or(m);
+  if (threadIdx.x < 32) {
+    const bool in = lane < static_cast<int>(blockDim.x >> 5);
+#pragma unroll
+    for (int i = 0; i < 13; ++i) {
+      const bool is_min = (i >= 1 && i < 4) || (i >= 7 && i < 10);
+      const unsigned x = in ? red[i * 32 + lane] : (is_min ? ~0u : 0u);
+      v[i] = is_min ? __reduce_min_sync(0xffffffffu, x)
+                    : __reduce_max_sync(0xffffffffu, x);
+    }
+    if (lane == 0) {
+      beam.wcap = unordered(v[0]);
+      beam.any = any;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        beam.o_min[k] = any ? unordered(v[1 + k]) : 0.f;
+        beam.o_max[k] = any ? unordered(v[4 + k]) : 0.f;
+        const float dmn = any ? unordered(v[7 + k]) : 1.f;
+        const float dmx = any ? unordered(v[10 + k]) : 1.f;
+        beam.d_min[k] = dmn;
+        beam.d_max[k] = dmx;
+        beam.inv_lo[k] = 1.0f / (dmn == 0.f ? 1.f : dmn);
+        beam.inv_hi[k] = 1.0f / (dmx == 0.f ? 1.f : dmx);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // The warp's least (v, k) by entry, then id, in every lane.  Entries are
 // in [0, +inf] (a -0 entry equals +0), so with -0 made +0 their bits order
 // as their values: two warp reductions.
@@ -487,6 +433,117 @@ __device__ Pick block_lexmin(float v, int k, float* red_f, int* red_i) {
   k = in ? red_i[lane] : INT_MAX;
   warp_lexmin(v, k);
   return {v, k};
+}
+
+// The owner of the consumed entry k marks it and its warp refreshes the
+// owner's least entry (cv, ck): the owner's entries one a lane, reduced by
+// entry, then id (the order of a scan).  Entries change only here, so each
+// thread's least entry stays its least one.
+__device__ __forceinline__ void consume(float* ent, int ncg, int k,
+                                        float& cv, int& ck) {
+  const int nt = blockDim.x, t = k % nt, tid = threadIdx.x;
+  if ((tid >> 5) != (t >> 5)) return;
+  if (tid == t) ent[k] = consumed();
+  __syncwarp();
+  float v = kInf;
+  int m = INT_MAX;
+  for (int j = t + nt * (tid & 31); j < ncg; j += 32 * nt) {
+    const float e = ent[j];
+    if (e < v) {
+      v = e;
+      m = j;
+    }
+  }
+  warp_lexmin(v, m);
+  if (tid == t) {
+    cv = v;
+    ck = m;
+  }
+}
+
+// The prologue's entry table: ``ent[j] = key(j)`` for every cluster (or
+// block) j, owned by thread j mod blockDim.x, and each thread's least entry
+// (cv, ck).  A warp takes a group of 32 consecutive clusters (its lanes are
+// their owners), two groups an iteration, so that their loads overlap; a
+// group whose box (``a.group_aabb``, kernels/fused.py::group_boxes) the
+// beam cannot reach gets kInf entries without a look at its clusters:
+// their slab intervals lie inside the group's, so each is infeasible too.
+// ``mark(j)`` runs for every entry written.
+template <typename Key, typename Mark>
+__device__ __forceinline__ void cull_entries(const WalkArgs& a,
+                                             const Beam& bm, float* ent,
+                                             Key key, Mark mark, float& cv,
+                                             int& ck) {
+  cv = kInf;
+  ck = INT_MAX;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int ng = (a.ncg + 31) >> 5;
+  for (int g = threadIdx.x >> 5; g < ng; g += 2 * nw) {
+    const int g1 = g + nw < ng ? g + nw : g;
+    const bool r0 = entry_bound<false>(a.group_aabb, nullptr, ng, g, bm) < kInf;
+    const bool r1 =
+        entry_bound<false>(a.group_aabb, nullptr, ng, g1, bm) < kInf;
+    const int j0 = 32 * g + lane;
+    const int j1 = g1 == g ? a.ncg : 32 * g1 + lane;
+    const float e0 = r0 && j0 < a.ncg ? key(j0) : kInf;
+    const float e1 = r1 && j1 < a.ncg ? key(j1) : kInf;
+    if (j0 < a.ncg) {
+      ent[j0] = e0;
+      mark(j0);
+      if (e0 < cv) {
+        cv = e0;
+        ck = j0;
+      }
+    }
+    if (j1 < a.ncg) {
+      ent[j1] = e1;
+      mark(j1);
+      if (e1 < cv) {
+        cv = e1;
+        ck = j1;
+      }
+    }
+  }
+}
+
+// A re-cull: every entry not consumed anew (``key(j)``) and each thread's
+// least entry (cv, ck).  Each thread rewrites the entries it owns.
+template <typename Key>
+__device__ __forceinline__ void recull_entries(const WalkArgs& a, float* ent,
+                                               Key key, float& cv, int& ck) {
+  cv = kInf;
+  ck = INT_MAX;
+  for (int j = threadIdx.x; j < a.ncg; j += blockDim.x) {
+    float e = ent[j];
+    if (e != consumed()) {
+      e = key(j);
+      ent[j] = e;
+    }
+    if (e < cv) {
+      cv = e;
+      ck = j;
+    }
+  }
+}
+
+// Can a ray reach the box ``bx`` (min xyz, max xyz, ``stride`` floats
+// apart; widened by the root margin) before its cap?  The classic walk's
+// pretest (fused.py::_slab_viable) for one ray: every pair it skips would
+// hit, if at all, at or beyond the ray's best (or t bound), where the
+// strict-min update takes nothing.
+__device__ __forceinline__ bool reaches(const float* bx, float margin,
+                                        const float o[3],
+                                        const float inv_d[3], float cap,
+                                        int stride = 1) {
+  float s_en = -kInf, s_ex = kInf;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float t1 = (bx[c * stride] - margin - o[c]) * inv_d[c];
+    const float t2 = (bx[(3 + c) * stride] + margin - o[c]) * inv_d[c];
+    s_en = max_nan(s_en, min_nan(t1, t2));
+    s_ex = min_nan(s_ex, max_nan(t1, t2));
+  }
+  return s_en <= s_ex && s_ex >= 0.f && s_en < cap;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -651,6 +708,94 @@ __device__ __forceinline__ void test_lanes(const float* geo, int C, bool vec,
 #pragma unroll 1
     for (int j = lo + first; j < hi; j += step) {
       test1<ANY_HIT, CULL>(geo, C, j, o, d, w, tmax0, itri, imesh, base, h);
+    }
+  }
+}
+
+constexpr int kSlotWords = 9;  // a spread ray: o, d, t bound, ignore ids
+
+// Few unresolved rays (U of them, at most half the block): their tests of
+// the staged block spread over the idle threads, G threads a ray (G a power
+// of two, at most 32, within a warp), each on its share of the lanes; the
+// group reduces (t, lane) lexicographically and the ray takes the result
+// only if its t is strictly below its best: exactly what the ascending loop
+// with ``dist < best`` computes.  Resolved rays are not tested (their tests
+// change nothing: every later entry is at or beyond their best).  ``slots``
+// holds blockDim.x / 2 rays of kSlotWords, ``red_i`` a word a warp.  Every
+// thread calls it; three barriers.
+template <bool ANY_HIT, int CULL>
+__device__ void spread_tests(const float* geo, int C, bool vec, int U,
+                             bool res, float* slots, int* red_i,
+                             const float o[3], const float d[3], float tmax0,
+                             int itri, int imesh, int base, Best& best) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  int G = 32;
+  while (U * G > nt) G >>= 1;
+  const unsigned bal = __ballot_sync(0xffffffffu, !res);
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) red_i[warp] = __popc(bal);
+  __syncthreads();
+  int slot = __popc(bal & ((1u << lane) - 1));
+  for (int w = 0; w < warp; ++w) slot += red_i[w];
+  if (!res) {
+    float* sl = slots + slot * kSlotWords;
+    sl[0] = o[0];
+    sl[1] = o[1];
+    sl[2] = o[2];
+    sl[3] = d[0];
+    sl[4] = d[1];
+    sl[5] = d[2];
+    sl[6] = tmax0;
+    sl[7] = __int_as_float(itri);
+    sl[8] = __int_as_float(imesh);
+  }
+  __syncthreads();
+  const int s = tid / G, g = tid % G;
+  Best lb{kInf, -1, 0.f, 0.f, 1.f, -1};
+  float* sl = slots + s * kSlotWords;
+  if (s < U) {
+    const float so[3] = {sl[0], sl[1], sl[2]};
+    const float sd[3] = {sl[3], sl[4], sl[5]};
+    test_lanes<ANY_HIT, CULL, 0>(geo, C, vec, 0, C, g, G, so, sd, sl[6],
+                                 __float_as_int(sl[7]),
+                                 __float_as_int(sl[8]), 0, lb);
+  }
+  // The group's least (t, lane); any-hit: whether any lane hit.
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, lb.t, off);
+    const int oc = __shfl_xor_sync(0xffffffffu, lb.code, off);
+    if (ANY_HIT) {
+      lb.code = lb.code > oc ? lb.code : oc;
+    } else {
+      const float ou = __shfl_xor_sync(0xffffffffu, lb.u, off);
+      const float ov = __shfl_xor_sync(0xffffffffu, lb.v, off);
+      const float odet = __shfl_xor_sync(0xffffffffu, lb.det, off);
+      const int otri = __shfl_xor_sync(0xffffffffu, lb.tri, off);
+      // Lanes that hit nothing carry code -1: rank them last.
+      const unsigned mine = static_cast<unsigned>(lb.code);
+      const unsigned theirs = static_cast<unsigned>(oc);
+      if (ot < lb.t || (ot == lb.t && theirs < mine)) {
+        lb = {ot, oc, ou, ov, odet, otri};
+      }
+    }
+  }
+  if (g == 0 && s < U) {
+    sl[0] = lb.t;
+    sl[1] = __int_as_float(lb.code);
+    sl[2] = lb.u;
+    sl[3] = lb.v;
+    sl[4] = lb.det;
+    sl[5] = __int_as_float(lb.tri);
+  }
+  __syncthreads();
+  if (!res) {
+    const float* mine = slots + slot * kSlotWords;
+    const int code = __float_as_int(mine[1]);
+    if (ANY_HIT) {
+      if (code >= 0) best.code = 0;
+    } else if (mine[0] < best.t) {
+      best = {mine[0], base + code, mine[2], mine[3], mine[4],
+              __float_as_int(mine[5])};
     }
   }
 }

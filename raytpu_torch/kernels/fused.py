@@ -729,6 +729,22 @@ def _walk_tiles(cl, tri_shade, o, d, tmax_in, itri, imesh, cull, any_hit,
     return out
 
 
+def _prepick_order(ent, picks):
+    """The prepick walk's picks of the tiles' entries ``ent`` (n, ncg): the
+    first ``picks`` entries in (entry, cluster id) order and their ids (n,
+    min(picks, ncg)) each, the feasible ones a prefix, and the entry each
+    ray settles against after pick s: the next pick's or, after the last,
+    the tail bound, the least entry left (INF once drained).  A stable sort
+    orders equal entries by id, like repeated argmins."""
+    n, ncg = ent.shape
+    vals, ks = torch.sort(ent, dim=1, stable=True)
+    f = min(picks, ncg)
+    tail = (vals[:, picks] if picks < ncg
+            else torch.full((n,), INF, dtype=vals.dtype, device=vals.device))
+    pv, pk = vals[:, :f], ks[:, :f]
+    return pv, pk, torch.cat([pv[:, 1:], tail[:, None]], dim=1)
+
+
 def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
     """The prepick walk of n whole tiles: ``o``/``d`` (n, ts, 3), the rest
     (n, ts)."""
@@ -738,19 +754,9 @@ def _prepick_tiles(cl, o, d, tmax_in, itri, imesh, cull, any_hit, picks):
     bt, bc = state["bt"], state["bc"]
     # Slab-only entries of the blocks (no fitted planes).
     ent = _entry_bounds(cl["aabb"], None, tl.finite, tl.o3, tl.d3, tl.wcap)
-    n, ncg = ent.shape
-
-    # Pick phase: the first ``picks`` entries in (entry, cluster id) order,
-    # and the tail bound, the least entry left (INF once drained).  A
-    # stable sort orders equal entries by id, like repeated argmins.
-    vals, ks = torch.sort(ent, dim=1, stable=True)
-    f = min(picks, ncg)
-    tail = (vals[:, picks] if picks < ncg
-            else torch.full((n,), INF, dtype=vals.dtype, device=vals.device))
-    pv, pk = vals[:, :f], ks[:, :f]
-    m = (pv < INF).sum(1)  # feasible picks per tile: a prefix
-    # The entry each ray settles against after pick s.
-    v_next = torch.cat([pv[:, 1:], tail[:, None]], dim=1)
+    n = ent.shape[0]
+    pv, pk, v_next = _prepick_order(ent, picks)
+    m = (pv < INF).sum(1)  # feasible picks per tile
 
     trips = torch.zeros(n, dtype=torch.int32, device=o.device)
     ray_tests = torch.zeros_like(trips)
@@ -809,6 +815,49 @@ def mxu_values(rmat, g, precision: str):
         raise ValueError(f"mxu_precision must be one of {MXU_PRECISIONS}, "
                          f"got {precision!r}")
     return out
+
+
+def _split_slots(c: int):
+    """The ``gblock`` row and column of every coefficient slot of a
+    ``gsplit`` block's hi (or lo) part, (24C,) each: per group of 8
+    triangles, per plane p and lane l of the m16n8k8 B fragments (g = l //
+    4, tig = l % 4, triangle n = 8 * group + g), a float2: p = 0 (det at
+    row tig, t*det at row 6 + tig), p = 1 (u*det at rows tig and tig + 4),
+    p = 2 (v*det at the same rows); column block 0, 3, 1 and 2."""
+    grp = torch.arange(c // 8)[:, None, None, None]
+    p = torch.arange(3)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    e = torch.arange(2)[None, None, None, :]
+    n, tig = 8 * grp + lane // 4, lane % 4
+    row = torch.where(p == 0, torch.where(e == 0, tig, 6 + tig),
+                      tig + 4 * e)
+    block = torch.where(p == 0, 3 * e, p)
+    shape = (c // 8, 3, 32, 2)
+    return row.expand(shape).reshape(-1), (block * c + n).expand(
+        shape).reshape(-1)
+
+
+def mxu_table(gblock):
+    """``gsplit`` (NCG, 50C) of the ``gblock`` table (NCG, 24, 4C), derived
+    once per bake for the tensor-core walk: per block the triangle and mesh
+    ids (2C, int32 bits), then ``tf32`` of the coefficients (24C) and
+    ``tf32`` of their rounding errors (24C), each in the slot order of
+    ``_split_slots``, the kernel's B fragments.  The coefficients outside
+    those slots, which the kernel never reads, must be zero (ValueError
+    otherwise)."""
+    ncg, _, c4 = gblock.shape
+    c = c4 // 4
+    rows, cols = (x.to(gblock.device) for x in _split_slots(c))
+    g = gblock[:, :16]
+    read = torch.zeros((16, c4), dtype=torch.bool, device=gblock.device)
+    read[rows, cols] = True
+    if bool((g[:, ~read] != 0).any()):
+        raise ValueError("gblock has coefficients outside the rows the "
+                         "tensor-core walk reads")
+    hi = tf32(g)
+    lo = tf32(g - hi)
+    return torch.cat([gblock[:, 16, :2 * c], hi[:, rows, cols],
+                      lo[:, rows, cols]], dim=1).contiguous()
 
 
 def _pair_values(block, idx, k, o3, d3, w3, lo, hi, mxu):
@@ -940,7 +989,11 @@ def walk_plain(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
     values of every tested pair come from ``R @ G``, and so do the
     winner's t and (u, v) (``udet/det``, ``vdet/det``), as the JAX
     package's kernel extracts them in the walk; acceptance and the
-    strict-min update are the exact walk's."""
+    strict-min update are the exact walk's.  As there, every ray of a
+    tile takes part in each test, the resolved ones too: in exact
+    arithmetic a resolved ray can take nothing more (every later entry is
+    at or beyond its best), but the rounded product can put a later
+    block's hit below its best, and the walk takes it."""
     _check_walk_args(cull, recull_every, max_trips, chunk_k=chunk_k)
     spec = _walk_spec(clusters, False, plane, chunk_k, pretest=pretest,
                       recull_every=recull_every, max_trips=max_trips,
@@ -987,6 +1040,13 @@ _BEAM_BYTES = 128
 _SLOT_WORDS = 9
 _TAIL_WORDS = 10
 _SIB_WORDS = 11
+# The tensor-core walk's words a thread: its ray's row (R's entries 0-8, t
+# bound, ignore ids) and two records of the reduction (csrc/mxuwalk.cu
+# ``kRayWords``, ``kCandRecs`` x ``kCandWords``).  It takes tiles of at
+# most 256 rays (its __launch_bounds__).
+_RAY_WORDS = 12
+_CAND_WORDS = 6
+MXU_MAX_TILE = 256
 
 
 def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
@@ -1000,24 +1060,29 @@ def _smem_bytes(ncg: int, csize: int, picks: int = 0, chunk_k: int = 0,
     one for the pretest); with the re-cull (``recull``), an epoch byte per
     entry.  A consumed cluster's
     entry is marked +inf in place (``CONSUMED``).  ``picks``: the prepick
-    walk's, the entry table, one staged block and the picks (entry and id).
+    walk's (csrc/walk.cu ``prepick_smem_bytes``), the entry table (padded to
+    4 floats), two staged cluster blocks and the spread tests' 9 words for
+    each of half the block's threads; the picks themselves take none.
     ``chunk_k`` > 0: the group kernel's (csrc/subwalk.cu
     ``group_smem_bytes``): the key table (padded to 4 floats), two groups
     of ``chunk_k`` staged blocks, 10 words for each of half the block's
     threads (the spread tests), the beam, the picks' scratch, and the two
     groups' keys, ids, ``subk`` sibling entries a pick and their copied
     sibling boxes and planes.  ``mxu``: the
-    tensor-core walk's at that precision, whose staged block is 8
-    coefficient rows of each of its 4 column blocks, each row padded by 8
-    floats, as TF32 hi and, for ``"highest"``, lo parts, and the 2C ids
-    (csrc/mxuwalk.cu ``mxu_smem_bytes``)."""
-    if mxu:
-        parts = 2 if mxu == "highest" else 1
-        staged = 8 * (4 * csize + 8) * parts + 2 * csize
-        return 4 * (ncg + chunk_k * staged) + 8 * chunk_k
-    if picks:
-        return 4 * (ncg + GEO_ROWS * csize) + 8 * picks
+    tensor-core walk's at that precision (csrc/mxuwalk.cu
+    ``mxu_smem_bytes``): the entry table (padded to 4 floats), two groups
+    of ``chunk_k`` staged ``gsplit`` blocks (the 2C ids and the 24C TF32 hi
+    parts, and for ``"highest"`` the 24C lo parts), each thread's ray row
+    (12 words), two records (6 words each), its best and its list slot,
+    and the two groups' entries and ids."""
     nt = (tile + 31) // 32 * 32
+    if mxu:
+        staged = (50 if mxu == "highest" else 26) * csize
+        return 4 * (-(-ncg // 4) * 4 + 2 * chunk_k * staged
+                    + nt * (_RAY_WORDS + 2 * _CAND_WORDS + 2) + 4 * chunk_k)
+    if picks:
+        return 4 * (-(-ncg // 4) * 4 + 2 * GEO_ROWS * csize
+                    + nt // 2 * _SLOT_WORDS)
     if not chunk_k:
         words = (-(-ncg // 4) * 4 + 2 * GEO_ROWS * csize
                  + nt // 2 * _SLOT_WORDS + 10 * nt)
@@ -1126,9 +1191,17 @@ def _validate(clusters, tri_shade, q: Query, cull, recull_every=0,
             chunk_k = spec.chunk_k
             tables.append(("gblock", clusters["gblock"], f32,
                            (ncg, 24, 4 * csize)))
+            if "gsplit" not in clusters:
+                raise ValueError("mxu needs the bake's gsplit table "
+                                 "(kernels/fused.py::mxu_table)")
+            tables.append(("gsplit", clusters["gsplit"], f32,
+                           (ncg, 50 * csize)))
             if csize % 8:
                 raise ValueError(f"the tensor-core walk tests groups of 8 "
                                  f"triangles; blocks of {csize} lanes")
+            if ts > MXU_MAX_TILE:
+                raise ValueError(f"the tensor-core walk takes tiles of at "
+                                 f"most {MXU_MAX_TILE} rays, got {ts}")
     for name, x, dtype, shape in tables:
         _check(name, x, q.origin.device, dtype, shape)
     mxu = spec.mxu if spec is not None else None
@@ -1201,8 +1274,9 @@ def _launch_walk(clusters, tri_shade, q: Query, cull, any_hit, spec: _Walk,
     shade = () if any_hit else (p(tri_shade),)
     kind = "any_hit" if any_hit else "nearest"
     if spec.mxu:
-        args = (*rays, plane, p(clusters["gblock"]), ncg, csize, *shade,
-                *shape, spec.chunk_k, int(spec.mxu == "highest"),
+        groups = group_boxes(clusters["aabb"])
+        args = (*rays, plane, p(groups), p(clusters["gsplit"]), ncg, csize,
+                *shade, *shape, spec.chunk_k, int(spec.mxu == "highest"),
                 p(out["t"]), p(out["code"]), *winner, *counts)
         fn = "rt_mxu_" + kind
     elif group:
@@ -1264,8 +1338,8 @@ def subwalk_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
 def prepick_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
                  picks: int):
     """Launch the prepick walk kernel of ``csrc/walk.cu`` on the current
-    stream: at most ``picks`` clusters per tile, drained into shared memory
-    before the walk.  Replaces ``raytpu/kernels/fused.py``'s
+    stream: at most ``picks`` clusters per tile, each picked just before
+    the trip that settles against it.  Replaces ``raytpu/kernels/fused.py``'s
     ``_prepick_kernel``; see the source for what bounds it on the card."""
     dev = q.origin.device
     if dev.type != "cuda":
@@ -1275,10 +1349,11 @@ def prepick_cuda(clusters, tri_shade, q: Query, *, cull, any_hit: bool,
     ncg, _, csize = block.shape
     p = lambda x: x.data_ptr()  # noqa: E731
     out = _outputs(r, r // ts, dev, not any_hit)
+    groups = group_boxes(clusters["aabb"])
     head = (p(q.origin), p(q.direction), p(q.t_max), p(q.ignore_tri),
             p(q.ignore_mesh), r, ts, p(clusters["root"]),
-            p(clusters["aabb"]), p(block), ncg, csize, _CULL_CODE[cull],
-            picks, p(out["t"]), p(out["code"]))
+            p(clusters["aabb"]), p(groups), p(block), ncg, csize,
+            _CULL_CODE[cull], picks, p(out["t"]), p(out["code"]))
     winner = () if any_hit else (p(out["u"]), p(out["v"]), p(out["tri"]))
     counts = tuple(p(out[k]) for k in ("resolved",) + _PER_TILE)
     _launch(kernel_name(any_hit, prepick=True),

@@ -14,6 +14,7 @@ import torch
 
 from raytpu_torch.accel.clusters import build_clusters
 from raytpu_torch.device import resolve
+from raytpu_torch.kernels.fused import mxu_table
 from raytpu_torch.scene import lights as lights_mod
 from raytpu_torch.scene.types import FlatScene, Scene
 
@@ -38,7 +39,8 @@ def flatten_scene(scene: Scene, cluster_size: int = 128,
     at most, ``max_depth`` levels) — host time that grows with the scene,
     so bakes of large scenes that never take that query pass False;
     ``build_gblock`` adds the coefficient table of the matmul pair test
-    (kernels/fused.py ``mxu``), 4x the walk's geometry table."""
+    (kernels/fused.py ``mxu``), 4x the walk's geometry table, and its TF32
+    split in the tensor-core walk's order (``gsplit``, ``mxu_table``)."""
     dev = resolve(device)
     tri_v = []
     tri_n = []
@@ -161,9 +163,12 @@ def flatten_scene(scene: Scene, cluster_size: int = 128,
     t_ = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     cl = clusters.as_device_arrays(v[:, 0], e1, e2, mesh_idx, snormal,
                                    build_gblock=build_gblock)
+    cl = {k: t_(a) for k, a in cl.items()}
+    if build_gblock:
+        cl["gsplit"] = mxu_table(cl["gblock"])
     return FlatScene(
         tri_shade=t_(shade),
-        clusters={k: t_(a) for k, a in cl.items()},
+        clusters=cl,
         octree=(None if octree is None
                 else {k: t_(a) for k, a in octree.items()}),
         mesh_material=t_(np.asarray(mesh_material, np.int32)),

@@ -105,7 +105,8 @@ class FlatScene:
     (accel/clusters.py): ``block`` (NCG, 24, C), ``aabb`` (6, NCG),
     ``root`` (8,) and ``plane`` (5, NCG) or, baked at cluster size 64 or 32,
     ``sub_aabb`` (subk, 6, NCG) and ``sub_plane`` (subk, 5, NCG); the
-    tiled query's leaf tables, ``tri_block`` and, when baked, ``gblock``.
+    tiled query's leaf tables, ``tri_block`` and, when baked, ``gblock``
+    and ``gsplit``.
     ``octree``: the OCTREE query's tables (accel/octree.py) or None."""
 
     tri_shade: torch.Tensor

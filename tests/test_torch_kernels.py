@@ -424,3 +424,122 @@ def test_dead_ray_nan_bound_does_not_poison_its_tile():
                            pretest=True, recull_every=6)
     assert bool(np.asarray(brute.hit).sum() > 4) and not bool(ph.hit[3])
     _assert_nearest(ph, brute, rtol=1e-5)
+
+
+def _lazy_prepick(ent, nt, picks):
+    """The prepick kernel's picks of one tile's entries ``ent`` (ncg,)
+    (csrc/walk.cu ``prepick_kernel``): thread t owns the entries t, t + nt,
+    ... and keeps its least (entry, id); a pick is the least of the
+    threads' by entry with -0 made +0, then id, consumed by its owner, who
+    rescans its own.  Pick s + 1 is taken just before trip s settles, and
+    only up to pick ``picks`` (the tail bound, not consumed).  Returns the
+    walked picks' ids and the entry each settles against (INF where the
+    picks ran out)."""
+    ent = ent.clone()
+    n = ent.shape[0]
+
+    def least(th):
+        own = ent[th::nt]
+        if own.numel() == 0:
+            return (float("inf"), n)
+        i = int(own.argmin())  # the first of equal entries: the lowest id
+        return (float(own[i]), th + nt * i)
+
+    owners = [least(th) for th in range(nt)]
+    ids, settle = [], []
+    while True:
+        v, k = min(owners, key=lambda p: (p[0] + 0.0, p[1]))
+        if ids:
+            settle.append(v + 0.0 if v < fused.INF else fused.INF)
+        if not v < fused.INF or len(ids) == picks:
+            return ids, settle
+        ids.append(k)
+        ent[k] = fused.CONSUMED
+        owners[k % nt] = least(k % nt)
+
+
+@pytest.mark.parametrize("nt", [32, 256])
+def test_lazy_prepick_picks_match_the_drain(nt):
+    """The prepick kernel takes each pick just before the trip that
+    settles against it, from per-thread least entries: a plain emulation of
+    that order gives exactly the picks and the settle entries (the next
+    pick's, the tail bound after the last) of the plain walk's up-front
+    drain (``_prepick_order``), at 2, 3 and 64 picks and beyond the
+    feasible clusters; with every block twice (tied entries), entries of
+    -0 and +0, and a tile with no feasible cluster."""
+    flat = terrain("torch", 16).flatten(cluster_size=16, device="cpu")
+    cl = flat.clusters
+    o, d = camera_rays(Camera(position=(0.0, 6.0, 9.0), aspect=1.0), 16, 16,
+                       device="cpu")
+    ts = 32
+    tl = fused._prologue(cl["root"], o.reshape(-1, ts, 3),
+                         d.reshape(-1, ts, 3),
+                         torch.full((o.shape[0] // ts, ts), fused.INF))
+    ent = fused._entry_bounds(cl["aabb"], None, tl.finite, tl.o3, tl.d3,
+                              tl.wcap)[:3]
+    ent = torch.cat([ent, ent], 1)  # every block twice
+    feasible = int((ent < fused.INF).sum(1).max())
+    assert 8 < feasible < ent.shape[1]
+    ent[0, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0])
+    ent[1, 7] = -0.0
+    ent[2] = fused.INF
+    for picks in (2, 3, 64, feasible + 5):
+        pv, pk, v_next = fused._prepick_order(ent, picks)
+        for tile in range(ent.shape[0]):
+            m = int((pv[tile] < fused.INF).sum())
+            ids, settle = _lazy_prepick(ent[tile], nt, picks)
+            assert ids == pk[tile, :m].tolist(), (picks, tile)
+            assert settle == (v_next[tile, :m] + 0.0).tolist(), (picks, tile)
+    assert _lazy_prepick(ent[2], nt, 64) == ([], [])
+
+
+@pytest.mark.parametrize("csize", [16, 32])
+def test_gsplit_is_the_tf32_split_of_gblock(csize):
+    """The bake's ``gsplit`` (the tensor-core walk's staged table) is, bit
+    for bit, the ids and ``tf32`` hi and lo parts of ``gblock``'s
+    coefficients in the kernel's B-fragment slots, with every coefficient
+    outside them zero; the plain matmul walk over a ``gblock`` rebuilt
+    from it (hi + lo in those slots, its ids) returns exactly what it
+    returns from the bake's ``gblock``, at both precisions."""
+    flat = sphere_and_plane("torch").flatten(cluster_size=csize, device="cpu",
+                                             build_gblock=True)
+    cl = flat.clusters
+    g, split = cl["gblock"], cl["gsplit"]
+    c = g.shape[2] // 4
+    rows, cols = fused._split_slots(c)
+    hi = fused.tf32(g[:, :16])
+    lo = fused.tf32(g[:, :16] - hi)
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    assert split.shape == (g.shape[0], 50 * c)
+    assert torch.equal(bits(split[:, :2 * c]), bits(g[:, 16, :2 * c]))
+    assert torch.equal(bits(split[:, 2 * c:26 * c]), bits(hi[:, rows, cols]))
+    assert torch.equal(bits(split[:, 26 * c:]), bits(lo[:, rows, cols]))
+    assert bool((lo != 0).any())
+    read = torch.zeros((16, 4 * c), dtype=torch.bool)
+    read[rows, cols] = True
+    assert int(read.sum()) == 24 * c and not bool(g[:, :16][:, ~read].any())
+    bad = g.clone()
+    bad[0, 10, 0] = 1.0  # a coefficient the kernel never reads
+    with pytest.raises(ValueError, match="outside"):
+        fused.mxu_table(bad)
+    coef = torch.zeros_like(g[:, :16])
+    coef[:, rows, cols] = split[:, 2 * c:26 * c] + split[:, 26 * c:]
+    # Equal values (hi + lo of a -0 coefficient is +0).
+    assert torch.equal(fused.tf32(coef), hi)
+    assert torch.equal(fused.tf32(coef - hi), lo)
+    rebuilt = g.clone()
+    rebuilt[:, :16] = coef
+    rebuilt[:, 16, :2 * c] = split[:, :2 * c]
+    o, d = random_rays(5, 96)
+    q = fused.pack_query(t(o), t(d), tile_size=32)
+    other = dict(cl, gblock=rebuilt)
+    for precision in fused.MXU_PRECISIONS:
+        for any_hit in (False, True):
+            a = fused.walk_plain(cl, flat.tri_shade, q, cull=True,
+                                 any_hit=any_hit, mxu=precision)
+            b = fused.walk_plain(other, flat.tri_shade, q, cull=True,
+                                 any_hit=any_hit, mxu=precision)
+            for name in a._fields:
+                x, y = getattr(a, name), getattr(b, name)
+                assert (x is None and y is None) or torch.equal(x, y), name
+            assert bool((a.code >= 0).any())

@@ -218,8 +218,10 @@ def test_incompatible_settings_raise(scenes):
 
 
 def test_prepick_wrapper_validates_inputs(scenes):
-    """The prepick kernel's wrapper refuses CPU tensors and picks whose
-    shared memory does not fit one block, before any build or launch."""
+    """The prepick kernel's wrapper refuses CPU tensors and bakes whose
+    shared memory does not fit one block, before any build or launch.  The
+    kernel takes each pick just before the trip that settles against it,
+    so the picks take no shared memory: any number fits."""
     _, pflat = scenes
     o, d = _rays(8, 2)
     q = fused.pack_query(t(o), t(d))
@@ -229,8 +231,12 @@ def test_prepick_wrapper_validates_inputs(scenes):
                            any_hit=False, picks=8)
     assert fused.LAUNCHES == before
     fused._validate(pflat.clusters, pflat.tri_shade, q, True, picks=8)
+    fused._validate(pflat.clusters, pflat.tri_shade, q, True, picks=30_000)
+    ncg = 60_000  # an entry table of 240 KB
+    big = {"block": torch.zeros((ncg, 24, 4)), "aabb": torch.zeros((6, ncg)),
+           "root": pflat.clusters["root"]}
     with pytest.raises(ValueError, match="shared memory"):
-        fused._validate(pflat.clusters, pflat.tri_shade, q, True,
-                        picks=30_000)
+        fused._validate(big, pflat.tri_shade, fused.pack_query(t(o), t(d)),
+                        True, picks=8)
     with pytest.raises(ValueError, match="picks"):
         fused._validate(pflat.clusters, pflat.tri_shade, q, True, picks=-2)

@@ -7,7 +7,8 @@ Each TREE is the root of a checkout (this one is ``.``).  Every turn is a
 fresh process that imports ``raytpu_torch`` and ``chip_smoke`` from its
 tree, builds that tree's kernels, bakes bench.py's terrain and times, with
 CUDA events, the 1024x1024 frame (primary + shadow rays), each of its
-walk calls, the prepick walk (64 picks) on the same queries, the
+walk calls, the prepick walk (64 picks, and as many as the bake has
+clusters) on the same queries, the
 frame baked at cluster size 32 with its subcluster walk calls and, where
 the tree bakes ``gblock``, the tensor-core walk's calls of the frame at
 each precision.  Then the instanced frame (chip_smoke.py's: the terrain's
@@ -25,7 +26,7 @@ the tile unresolved (four passes a trip: with the gate they read low).
 The trees run in the given
 order, then in reverse (A, B, B, A), so that drift of the card shows.
 Prints one line per turn (with the registers and spill stores of each
-source's kernels), the card's name and power limit, and writes all of it
+kernel of each source), the card's name and power limit, and writes all of it
 as JSON to ``--out``.
 """
 
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -40,7 +42,7 @@ from pathlib import Path
 
 # Run inside each tree: only what every checkout of the port has.
 _TURN = r'''
-import inspect, json, re, sys, torch
+import inspect, json, sys, torch
 import chip_smoke as cs
 PICKS = 64
 SUB = 32  # the subcluster walk's bake (bench.py's BENCH_CSIZE)
@@ -51,18 +53,6 @@ from raytpu_torch.render.wavefront import render_rays
 from raytpu_torch.scene.flatten import flatten_scene
 
 _, _, log = build_library()
-# Registers and spill stores per source, in the compiler's order.
-regs, spills, src = {}, {}, None
-for line in log.splitlines():
-    m = re.search(r"Compiling entry function '.*?_\d+_([a-z]+)_cu_", line)
-    if m:
-        src = m.group(1) + ".cu"
-    elif "registers" in line and src:
-        regs.setdefault(src, []).append(
-            line.split("Used ")[1].split(" registers")[0])
-    elif "spill stores" in line and src:
-        spills[src] = spills.get(src, 0) + int(
-            line.split("bytes spill stores")[0].split(",")[-1])
 dev = torch.device("cuda")
 # A tree whose bake builds an octree by default is told not to: the walk
 # does not read it.
@@ -85,11 +75,13 @@ flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=cs.CLUSTER_SIZE,
                                        device=dev, **bake_kw)
 frame_ms = cs._cuda_ms(lambda: render_rays(flat, cfg, o, d), 8)
 walks, calls = timed_walks(flat, fused.walk_cuda)
-# The prepick walk on the same queries.
-prepick = [{"any_hit": kw["any_hit"],
+# The prepick walk on the same queries, at 64 picks and at every cluster.
+prepick = [{"any_hit": kw["any_hit"], "picks": picks,
             "ms": cs._cuda_ms(lambda: fused.prepick_cuda(
                 c, s, q, cull=kw["cull"], any_hit=kw["any_hit"],
-                picks=PICKS), 16)}
+                picks=picks), reps)}
+           for picks, reps in ((PICKS, 16),
+                               (flat.clusters["block"].shape[0], 4))
            for c, s, q, kw, _ in calls]
 del flat
 # The subcluster walk: the bench frame baked at 32.
@@ -178,9 +170,28 @@ for gate in (False, True):
 print(json.dumps({"frame_ms": frame_ms, "walks": walks, "prepick": prepick,
                   "sub_frame_ms": sub_frame_ms, "sub": sub, "mxu": mxu,
                   "inst_frame_ms": inst_frame_ms, "inst": inst,
-                  "inst32": inst32,
-                  "registers": regs, "spill_store_bytes": spills}))
+                  "inst32": inst32, "ptxas": log}))
 '''
+
+
+def kernel_registers(log: str) -> dict:
+    """Registers (one entry per instantiation, in the compiler's order) and
+    spill stores (bytes, summed) of each kernel in a ``-Xptxas -v`` log,
+    keyed ``"walk.cu walk_kernel"``."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?_\d+_([a-z]+)_cu_.*?"
+                      r"\d+([a-z_]+_kernel)I", line)
+        if m:
+            key = f"{m.group(1)}.cu {m.group(2)}"
+            out.setdefault(key, {"registers": [], "spill_store_bytes": 0})
+        elif "Used" in line and "registers" in line and key:
+            out[key]["registers"].append(
+                line.split("Used ")[1].split(" registers")[0])
+        elif "spill stores" in line and key:
+            out[key]["spill_store_bytes"] += int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+    return out
 
 
 def _turn(tree: Path) -> dict:
@@ -189,7 +200,9 @@ def _turn(tree: Path) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"{tree} failed ({proc.returncode}):\n"
                            f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["kernels"] = kernel_registers(res.pop("ptxas"))
+    return res
 
 
 SUB = 32
@@ -217,8 +230,8 @@ def main():
         print(f"{tree}: frame {res['frame_ms']:.3f} ms; walks "
               + ", ".join(f"{kind(w)} {w['ms']:.3f} ms"
                           for w in res["walks"])
-              + "".join(f", prepick {kind(w)} {w['ms']:.3f} ms"
-                        for w in res["prepick"])
+              + "".join(f", prepick {w.get('picks', 64)} {kind(w)} "
+                        f"{w['ms']:.3f} ms" for w in res["prepick"])
               + f"; at {SUB}: frame {res['sub_frame_ms']:.3f} ms, subcluster "
               + ", ".join(f"{kind(w)} {w['ms']:.3f} ms" for w in res["sub"])
               + "".join(f"; mxu {prec} " + ", ".join(
@@ -229,9 +242,9 @@ def main():
               + f"{sum(w['ms'] for w in res['inst']):.1f} ms "
               + f"(re-cull off {sum(w['recull0_ms'] for w in res['inst']):.1f})"
               + "".join(
-                  f"; {src} registers {'/'.join(r)} (spill stores "
-                  f"{res['spill_store_bytes'].get(src, 0)} bytes)"
-                  for src, r in res["registers"].items()), flush=True)
+                  f"; {k} registers {'/'.join(v['registers'])} (spill "
+                  f"stores {v['spill_store_bytes']} bytes)"
+                  for k, v in res["kernels"].items()), flush=True)
         for i, w in enumerate(res["inst"]):
             print(f"  instanced call {i} ({kind(w)}, re-cull "
                   f"{w['recull_every']}): {w['ms']:.3f} ms, trips mean "

@@ -1,6 +1,7 @@
 """Split a walk kernel's trips into phases on the card, per walk call.
 
-    python3 walk_split.py TREE [--kernel walk|subwalk] [--out FILE]
+    python3 walk_split.py TREE [--kernel walk|subwalk|prepick|mxu]
+                          [--out FILE]
 
 TREE is the root of a checkout of the port (``.`` for this one).  The
 script copies the tree's ``raytpu_torch`` and ``chip_smoke.py`` into
@@ -27,6 +28,18 @@ pretest and re-cull off (its 16 calls, gate off and on).  It knows the
 stamp points of two versions of ``subwalk.cu``: the walk with a pick scan
 per pick and the sibling entries recomputed after it, and the walk that
 picks ahead from per-thread least keys.
+
+``--kernel prepick``: the prepick walk (``prepick_kernel``,
+``csrc/walk.cu``) on the bench frame's two queries at 64 picks and at
+every cluster of the bake.  ``--kernel mxu``: the tensor-core walk
+(``mxu_walk_kernel``, ``csrc/mxuwalk.cu``) on the bench frame baked with
+``gblock``, at both precisions.  Each knows the stamp points of two
+designs: a pick scan (or drain) per pick with synchronous staging, and
+picks from per-thread least entries, taken ahead, with asynchronous
+staging.
+
+Every split also prints the unresolved rays a tested block (ray tests over
+tested blocks) and the registers and spill stores of the stamped kernels.
 """
 
 from __future__ import annotations
@@ -197,8 +210,125 @@ SUBWALK_VERSIONS["ahead"] = (
          "    b ^= 1;\n  }\n  if (tid == 0) {\n" + _OUT + "  }\n"
          "  write_out<"),
     ])
+# prepick_kernel: the drain of every pick before the walk, then a scan-free
+# walk over them with synchronous staging and scalar tests.
+PREPICK_VERSIONS = {
+    "drain": (["prologue", "pick", "stage", "tests", "settle", "-", "-"], [
+        ("namespace {\n\n// ---- walk_kernel's parts",
+         _DECL + "namespace {\n\n// ---- walk_kernel's parts"),
+        _head("  const Ray ray"),
+        ("  fill_entries<false>(a, ray, res, ent, red_f);\n\n  // Pick phase",
+         "  fill_entries<false>(a, ray, res, ent, red_f);\n  STAMP(0);\n\n"
+         "  // Pick phase"),
+        ("  __syncthreads();\n\n  Best best{",
+         "  __syncthreads();\n  STAMP(1);\n\n  Best best{"),
+        ("    ray_tests += stage(a, k, geo, res);\n",
+         "    ray_tests += stage(a, k, geo, res);\n    STAMP(2);\n"),
+        ("    test_staged<ANY_HIT, CULL>(geo, C, 0, C, k, ray, w, best);\n",
+         "    test_staged<ANY_HIT, CULL>(geo, C, 0, C, k, ray, w, best);\n"
+         "    STAMP(3);\n"),
+        ("    settled = __syncthreads_and(res);\n  }\n  write_out<",
+         "    settled = __syncthreads_and(res);\n    STAMP(4);\n  }\n"
+         "  if (tid == 0) {\n" + _OUT + "  }\n  write_out<"),
+    ]),
+}
+# prepick_kernel taking each pick just before the trip that settles against
+# it, from per-thread least entries, its rows copied ahead.
+PREPICK_VERSIONS["lazy"] = (
+    ["prologue", "pick", "ready", "tests", "settle", "-", "-"], [
+        ("namespace {\n\n// ---- walk_kernel's parts",
+         _DECL + "namespace {\n\n// ---- walk_kernel's parts"),
+        _head("  const Ray ray"),
+        ("  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};\n  // Pick s: the least",
+         "  STAMP(0);\n  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};\n"
+         "  // Pick s: the least"),
+        ("  Pick cur = pick(geo0, true);\n",
+         "  Pick cur = pick(geo0, true);\n  STAMP(1);\n"),
+        ("    const Pick nxt = pick(geo0 + (b ^ 1) * kGeoRows * C, more);\n",
+         "    const Pick nxt = pick(geo0 + (b ^ 1) * kGeoRows * C, more);\n"
+         "    STAMP(1);\n"),
+        ("    ray_tests += U;\n", "    ray_tests += U;\n    STAMP(2);\n"),
+        ("    const float vn = nxt.v < kInf ? nxt.v : kInf;\n",
+         "    STAMP(3);\n    const float vn = nxt.v < kInf ? nxt.v : kInf;\n"),
+        ("    cur = nxt;\n    b ^= 1;\n  }\n  cp_async_wait<0>();\n",
+         "    STAMP(4);\n    cur = nxt;\n    b ^= 1;\n  }\n"
+         "  cp_async_wait<0>();\n  if (tid == 0) {\n" + _OUT + "  }\n"),
+    ])
+# mxu_walk_kernel: a pick scan per pick, synchronous staging with the TF32
+# rounding, every warp's products and acceptance, the quad reduction.
+MXU_VERSIONS = {
+    "scan": (["prologue", "pick", "pretest", "stage", "tests", "reduction",
+              "settle"], [
+        ("namespace {\n\nconstexpr int kGRows",
+         _DECL + "namespace {\n\nconstexpr int kGRows"),
+        _head("  const Ray ray"),
+        ("  int trips = 0, tests = 0, ray_tests = 0;\n\n  pick_group(a, ent, "
+         "gv, gk, red_f, red_i);\n",
+         "  int trips = 0, tests = 0, ray_tests = 0;\n  STAMP(0);\n\n"
+         "  pick_group(a, ent, gv, gk, red_f, red_i);\n  STAMP(1);\n"),
+        ("    // Stage the tested blocks:",
+         "    STAMP(2);\n    // Stage the tested blocks:"),
+        ("    __syncthreads();\n    for (int j = 0; j < K; ++j) {\n"
+         "      if (!((run >> j) & 1u)) continue;\n      ray_tests += unres;",
+         "    __syncthreads();\n    STAMP(3);\n"
+         "    for (int j = 0; j < K; ++j) {\n"
+         "      if (!((run >> j) & 1u)) continue;\n      ray_tests += unres;"),
+        ("      // Reduce each slot over the quad",
+         "      STAMP(4);\n      // Reduce each slot over the quad"),
+        ("    __syncthreads();  // the staged blocks and picks are read: refill "
+         "them\n    pick_group(a, ent, gv, gk, red_f, red_i);\n",
+         "    __syncthreads();  // the staged blocks and picks are read: refill "
+         "them\n    STAMP(5);\n    pick_group(a, ent, gv, gk, red_f, red_i);"
+         "\n    STAMP(1);\n"),
+        ("    if (__syncthreads_and(res)) break;\n",
+         "    if (__syncthreads_and(res)) { STAMP(6); break; }\n"
+         "    STAMP(6);\n"),
+        ("  write_out<ANY_HIT>(a, r, active, best, res, trips, tests, "
+         "ray_tests);\n",
+         "  if (tid == 0) {\n" + _OUT + "  }\n"
+         "  write_out<ANY_HIT>(a, r, active, best, res, trips, tests, "
+         "ray_tests);\n"),
+    ]),
+}
+# mxu_walk_kernel over the listed rays (every ray that is not dead), its
+# picks taken ahead from per-thread least entries and their G rows copied
+# asynchronously.
+MXU_VERSIONS["ahead"] = (
+    ["prologue", "pick", "ready", "pretest", "tests", "reduction", "-"], [
+        ("namespace {\n\nconstexpr int kMaxChunk = 8;\nconstexpr int kRayWords",
+         _DECL + "namespace {\n\nconstexpr int kMaxChunk = 8;\n"
+         "constexpr int kRayWords"),
+        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+         "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+         + _PROF),
+        ("  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};\n  // Slab reciprocals",
+         "  STAMP(0);\n  Best best{tmax0, -1, 0.f, 0.f, 1.f, -1};\n"
+         "  // Slab reciprocals"),
+        ("  float cur = pick_group(0);\n",
+         "  float cur = pick_group(0);\n  STAMP(1);\n"),
+        ("  int slot = list_rays();\n", "  int slot = list_rays();\n  STAMP(2);\n"),
+        ("    const float nv = pick_group(nb);\n",
+         "    const float nv = pick_group(nb);\n    STAMP(1);\n"),
+        ("    const int J = __popc(run);\n",
+         "    STAMP(3);\n    const int J = __popc(run);\n"),
+        ("      __syncthreads();\n      if (slot >= 0) {\n",
+         "      __syncthreads();\n      STAMP(4);\n      if (slot >= 0) {\n"),
+        ("    res = res || (ANY_HIT ? (best.code >= 0 || tmax0 <= nv) : "
+         "(best.t <= nv));\n    unres = ready();\n    if (unres == 0) break;\n",
+         "    STAMP(5);\n    res = res || (ANY_HIT ? (best.code >= 0 || tmax0 "
+         "<= nv) : (best.t <= nv));\n    unres = ready();\n"
+         "    if (unres == 0) { STAMP(2); break; }\n"),
+        ("    slot = list_rays();\n", "    slot = list_rays();\n    STAMP(2);\n"),
+        ("  cp_async_wait<0>();\n  write_out<ANY_HIT>(a, r, active, best, res, "
+         "trips, tests, ray_tests);\n",
+         "  cp_async_wait<0>();\n  if (tid == 0) {\n" + _OUT + "  }\n"
+         "  write_out<ANY_HIT>(a, r, active, best, res, trips, tests, "
+         "ray_tests);\n"),
+    ])
 KERNELS = {"walk": ("walk.cu", WALK_VERSIONS),
-           "subwalk": ("subwalk.cu", SUBWALK_VERSIONS)}
+           "subwalk": ("subwalk.cu", SUBWALK_VERSIONS),
+           "prepick": ("walk.cu", PREPICK_VERSIONS),
+           "mxu": ("mxuwalk.cu", MXU_VERSIONS)}
 
 # Run inside the stamped copy.
 _DRIVE = r'''
@@ -208,12 +338,14 @@ import chip_smoke as cs
 from raytpu_torch import Quantize, RenderConfig
 from raytpu_torch.core.camera import Camera
 from raytpu_torch.kernels import fused
-from raytpu_torch.kernels.build import load_library
+from raytpu_torch.kernels.build import build_library, load_library
 from raytpu_torch.render import instanced as prender
 from raytpu_torch.render.wavefront import render_rays
 
 PHASES = json.loads(sys.argv[1])
 KERNEL = sys.argv[2]
+with open("ptxas.txt", "w") as f:
+    f.write(build_library()[2])
 lib = load_library()
 lib.rt_prof_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
 dev = torch.device("cuda")
@@ -239,6 +371,8 @@ def split(calls, label, only=None):
         share = p[:, :7].sum(0) / p[:, :7].sum()
         row = {"call": f"{label} {i}", "walk": {k: str(v) for k, v in kw.items()},
                "ms": ms, "trips_mean": float(out.iters.float().mean()),
+               "ray_tests_per_test": float(out.ray_tests.double().sum())
+               / max(float(out.tests.double().sum()), 1.0),
                "longest": {"trips": int(out.iters[L]),
                            "tested": int(out.tests[L]),
                            "clocks_per_trip": float(p[L, 7]) / trips,
@@ -253,9 +387,11 @@ def split(calls, label, only=None):
         lo = row["longest"]
         print(f"{row['call']} ({'any_hit' if kw['any_hit'] else 'nearest'}, "
               f"pretest {kw.get('pretest', False)}, re-cull "
-              f"{kw.get('recull_every', 0)}, gate {kw.get('gate', '-')}): "
+              f"{kw.get('recull_every', 0)}, gate {kw.get('gate', '-')}, "
+              f"picks {kw.get('picks', '-')}, mxu {kw.get('mxu', '-')}): "
               f"{ms:.3f} ms (stamped), trips "
-              f"mean {row['trips_mean']:.1f}; longest tile {lo['trips']} "
+              f"mean {row['trips_mean']:.1f}, unresolved rays a tested block "
+              f"{row['ray_tests_per_test']:.1f}; longest tile {lo['trips']} "
               f"trips ({lo['tested']} tested) from {lo['start_ms']:.2f} to "
               f"{lo['end_ms']:.2f} ms, {lo['clocks_per_trip']:.0f} clocks a "
               "trip: " + ", ".join(f"{n} {v:.0f}" for n, v in
@@ -293,6 +429,27 @@ if KERNEL == "walk":
     split([(c, s, q, {**kw, "recull_every": 0}, o_)
            for c, s, q, kw, o_ in calls], "instanced, re-cull off",
           only={0, 8, 12})
+elif KERNEL == "prepick":
+    flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=cs.CLUSTER_SIZE,
+                                           device=dev, build_octree=False)
+    with cs.recording_walks() as calls:
+        render_rays(flat, cfg, o, d)
+    for picks in (64, flat.clusters["block"].shape[0]):
+        split([(c, s, q, {"cull": kw["cull"], "any_hit": kw["any_hit"],
+                          "picks": picks}, o_)
+               for c, s, q, kw, o_ in calls], f"bench prepick {picks}")
+elif KERNEL == "mxu":
+    from raytpu_torch.render.wavefront import trace_colors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=cs.CLUSTER_SIZE,
+                                           device=dev, build_octree=False,
+                                           build_gblock=True)
+    for prec in ("highest", "default"):
+        with cs.recording_walks() as calls:
+            trace_colors(flat, cfg, o, d, query=cs._fused_query(
+                mxu=True, mxu_precision=prec))
+        split(calls, f"bench mxu {prec}")
 else:
     for size in (32, 64):
         flat = cs.bench_scene(cs.TRIS).flatten(cluster_size=size, device=dev,
@@ -353,6 +510,11 @@ def main():
     if proc.returncode != 0:
         raise SystemExit(f"walk_split failed ({proc.returncode}):\n"
                          f"{proc.stderr[-4000:]}")
+    from walk_ab import kernel_registers
+
+    for key, v in kernel_registers((dest / "ptxas.txt").read_text()).items():
+        print(f"{key}: registers {'/'.join(v['registers'])}, spill stores "
+              f"{v['spill_store_bytes']} bytes (stamped)")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(proc.stdout.splitlines()[-1])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
