@@ -101,7 +101,19 @@ Phases, each printing its lines:
 13. profile: the bench frame's spread and torch.profiler breakdown, the
     instanced frame's device ms per kernel variant, busy share and the
     host syncs of its per-instance pass skips, and the flagship frame's
-    (32 bake) device ms: the walks against the shading's kernels.
+    (32 bake) device ms: the walks against the shading's kernels;
+14. cli: the user-facing render path: the bench frame supersampled
+    (quality 1, a padded tail of dead quadrants in its last batch) and
+    ``python -m raytpu_torch render`` of ``assets/demo.toml`` at 1024x1024
+    supersampled with eight reflections, in process, each with its ms,
+    live corner rays, rays/s, walk launches and device busy share, the
+    first and last of their walk calls and a spread of the rest held
+    against the plain walk (dead quadrants and level-1 batches among
+    them), the demo's PNG read back as the returned image; its normals and
+    convex channels; ``animate`` into a DIB AVI and, where Pillow imports,
+    an MJPG one, read back, and ``--resume`` re-rendering one deleted
+    frame into the same AVI; ``fit --steps 2`` on ``assets/crate.toml``;
+    ``cast_screen_ray`` card against CPU; a scripted viewer session.
 
 Each phase prints its seconds (``[clock]``).  Then one JSON line with the
 kernels (time, plain time, launches, trips per tile, the least time the
@@ -117,6 +129,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
 import math
 import re
@@ -1029,13 +1042,13 @@ def plain_query(cfg):
 
 
 @contextlib.contextmanager
-def recording_walks():
+def recording_walks(calls=None):
     """Every ``walk_cuda``, ``subwalk_cuda`` and ``prepick_cuda`` call made
     inside: (clusters, tri_shade, query, options, output), in launch
-    order."""
+    order, appended to ``calls`` (default: a new list)."""
     from raytpu_torch.kernels import fused
 
-    calls = []
+    calls = [] if calls is None else calls
     launchers = {"walk_cuda": fused.walk_cuda,
                  "subwalk_cuda": fused.subwalk_cuda,
                  "prepick_cuda": fused.prepick_cuda}
@@ -3494,6 +3507,438 @@ def phase_query(dev, card, flat128, rays, img128, record):
     return out
 
 
+# The [cli] phase: the user-facing render path.
+CLI_RES = 1024
+CLI_QUALITY = 1
+# Three quarters of the default tile: 768 quadrants a batch, so the
+# supersampled bench frame's last batch ends in a padded tail of dead
+# quadrants (the default's 1,024 divides 1024^2).
+CLI_TILE_PIXELS = 12288
+# Walk calls held against the plain walk: the first and last CLI_ENDS of a
+# frame; of the bench frame every CLI_STRIDE-th (its batches launch four
+# calls: levels 0 and 1, nearest and any-hit); of the demo frame every call
+# of the batches a third and two thirds of the way down the frame (36 a
+# batch: 2 levels x 9 bounces x 2 queries), whose rows cross its spheres;
+# and of each frame the level-1 nearest and any-hit calls with the most
+# live rays (level 1's live sub-pixel rays sit among dead quadrants).
+CLI_ENDS = 4
+CLI_STRIDE = 1499
+CLI_DEMO_BATCHES = (1 / 3, 2 / 3)
+CLI_PROFILED_BATCHES = {"bench": 4, "demo": 1}
+CLI_ANIM_RES = 256
+CLI_ANIM_FRAMES = 4
+CLI_VIEW_RES = 256
+CLI_FIT_RES = 64
+ASSETS = Path(__file__).resolve().parent / "assets"
+
+
+class _HeldCalls:
+    """A ``recording_walks`` sink that holds the calls whose index is below
+    ``ends`` or that ``keep`` takes, the last ``ends`` calls, and, of the
+    calls of ``level1_rays`` rays (a supersampled batch's level 1), the
+    nearest and the any-hit call with the most live rays: a frame of
+    thousands of walk calls would otherwise hold every call's rays and
+    outputs on the card.  Counting a level-1 call's live rays reads the
+    card once a call."""
+
+    def __init__(self, keep, level1_rays, ends=CLI_ENDS):
+        import collections
+
+        self.keep, self.level1_rays, self.ends, self.n = keep, level1_rays, \
+            ends, 0
+        self.held, self.last = {}, collections.deque(maxlen=ends)
+        self.best = {}  # any_hit -> (live rays, index, call)
+
+    def append(self, call):
+        if self.n < self.ends or self.keep(self.n):
+            self.held[self.n] = call
+        self.last.append((self.n, call))
+        q, any_hit = call[2], call[3]["any_hit"]
+        if q.direction.shape[0] == self.level1_rays:
+            live = int(torch.isfinite(q.direction).all(-1).sum())
+            if live > self.best.get(any_hit, (0,))[0]:
+                self.best[any_hit] = (live, self.n, call)
+        self.n += 1
+
+    def calls(self):
+        """(indices, calls) held, in launch order."""
+        best = {i: c for _, i, c in self.best.values()}
+        held = {**self.held, **dict(self.last), **best}
+        return sorted(held), [held[i] for i in sorted(held)]
+
+
+@contextlib.contextmanager
+def counting_corner_rays(dev):
+    """The corner rays the supersampler traces alive, summed on the card."""
+    from raytpu_torch.render import supersample
+
+    trace = supersample.trace_colors
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def counted(scene, cfg, origin, direction, alive=None, query=None):
+        count.add_(alive.sum())
+        return trace(scene, cfg, origin, direction, alive=alive, query=query)
+
+    supersample.trace_colors = counted
+    try:
+        yield count
+    finally:
+        supersample.trace_colors = trace
+
+
+@contextlib.contextmanager
+def returned_images():
+    """The images ``render_image`` returns inside (the CLI's frames)."""
+    from raytpu_torch.render import wavefront
+
+    render = wavefront.render_image
+    images = []
+
+    def capture(*args, **kw):
+        images.append(render(*args, **kw))
+        return images[-1]
+
+    wavefront.render_image = capture
+    try:
+        yield images
+    finally:
+        wavefront.render_image = render
+
+
+def _cli(argv, dev):
+    """One CLI command in process, its standard output kept: (output, ms)
+    by the host clock, synchronised."""
+    from raytpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv], device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return buf.getvalue(), ms
+
+
+def _avi(path):
+    """A RIFF/AVI file's frame count, size and frame chunks."""
+    import struct
+
+    data = Path(path).read_bytes()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise AssertionError(f"{path} is not an AVI file")
+    i = data.index(b"avih") + 8
+    total, w, h = (struct.unpack_from("<I", data, i + k)[0]
+                   for k in (16, 32, 36))
+    frames, j = [], data.index(b"movi") + 4
+    while j < len(data) - 8:
+        cc, size = data[j:j + 4], struct.unpack_from("<I", data, j + 4)[0]
+        if cc == b"idx1":
+            break
+        if cc in (b"00db", b"00dc"):
+            frames.append(data[j + 8:j + 8 + size])
+        j += 8 + size + size % 2
+    return total, (w, h), frames
+
+
+def _dib_rgb(buf, w, h):
+    stride = (w * 3 + 3) & ~3
+    rows = np.frombuffer(buf, np.uint8).reshape(h, stride)[:, :w * 3]
+    return rows.reshape(h, w, 3)[::-1, :, ::-1]
+
+
+def _held_walks(held, what, record):
+    """Hold the walk calls that ``held`` kept against the plain walk, bit
+    for bit with their counters; print which calls and how many of their
+    rays were dead (NaN directions: dead quadrants, padding, dead lanes)."""
+    if False not in held.best:
+        raise AssertionError(f"{what}: no level-1 nearest call has a live "
+                             "ray")
+    level1 = {("any-hit" if k else "nearest"): {"call": i, "live_rays": live}
+              for k, (live, i, _) in sorted(held.best.items())}
+    idx, calls = held.calls()
+    dead = [int((~torch.isfinite(c[2].direction).all(-1)).sum())
+            for c in calls]
+    live = [c[2].direction.shape[0] - d for c, d in zip(calls, dead)]
+    print(f"  {what}: {held.n} walk calls; holding calls {idx} against the "
+          f"plain walk (their live rays: {live}; dead rays: {dead}); the "
+          f"level-1 calls with the most live rays: {level1}")
+    rows = check_recorded(calls, what, record)
+    return {"calls": held.n, "held": idx, "live_rays": live,
+            "dead_rays": dead, "level1": level1,
+            "max_abs_err": max(r["err"] for r in rows)}
+
+
+def _busy(frame, what):
+    """The device's busy share over one call of ``frame`` (torch.profiler),
+    or None where the profiler records no device time."""
+    p = _profile(frame, 1)
+    share = p.get("busy_share")
+    print(f"  {what}: device busy "
+          + ("not measured" if share is None else f"{share:.1%}")
+          + f", {p['host_syncs_per_frame']:.0f} host syncs")
+    return share
+
+
+def _batches(cfg, dev, count):
+    """``count`` quadrant batches from the middle of a multisampled
+    frame: (centers x, centers y, alive) each, as the frame cuts them."""
+    tile = max(1, cfg.tile_pixels // (4 ** cfg.multisample_quality * 4))
+    n = cfg.width * cfg.height
+    start = (n // tile // 2) * tile
+    idx = torch.arange(start, start + count * tile, device=dev)
+    cx, cy = (idx % cfg.width).float(), (idx // cfg.width).float()
+    return [(cx[s:s + tile], cy[s:s + tile], idx[s:s + tile] < n)
+            for s in range(0, count * tile, tile)]
+
+
+def _cli_args(scene, res, dev, **kw):
+    """The CLI's parsed options (its defaults) for ``scene`` at ``res`` on
+    ``dev``."""
+    base = dict(scene=str(scene), width=res, height=res, max_reflections=8,
+                multisample=0, intersector="auto", render_mode="shaded",
+                reflect=0.5, transparent=False, obj_scale=1.0,
+                camera=None, target=None, fov=None, device=dev)
+    return argparse.Namespace(**{**base, **kw})
+
+
+def phase_cli(dev, card, flat, out_dir, record):
+    """The user-facing render path on the card: the supersampled bench
+    frame, the CLI's demo render, its debug channels, an animation with
+    ``--resume``, the viewer, a fit and a debug ray path."""
+    import dataclasses
+
+    from raytpu_torch import RenderConfig
+    from raytpu_torch.cli import main as cli
+    from raytpu_torch.cli.interactive import InteractiveSession
+    from raytpu_torch.core.camera import Camera
+    from raytpu_torch.io.image import read_image, to_uint8
+    from raytpu_torch.render.debug import REFLECTION, cast_screen_ray
+    from raytpu_torch.render.supersample import supersample_colors
+    from raytpu_torch.render.wavefront import render_image
+
+    out_dir = out_dir / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    print(f"[cli] {card}")
+    result = {"card": card}
+
+    # (a) The supersampled bench frame.
+    cam = Camera(position=(0.0, 28.0, 34.0), target=(0.0, 0.0, 0.0),
+                 aspect=1.0)
+    cfg = RenderConfig(width=CLI_RES, height=CLI_RES, max_reflections=0,
+                       use_multisampling=True, multisample_quality=CLI_QUALITY,
+                       tile_pixels=CLI_TILE_PIXELS)
+    held = _HeldCalls(lambda i: i % CLI_STRIDE == 0, CLI_TILE_PIXELS)
+    reset_launches()
+    with counting_corner_rays(dev) as rays, recording_walks(held):
+        t0 = time.perf_counter()
+        img = render_image(flat, cfg, cam)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    _require(launches, "nearest", "any_hit")
+    live = int(rays)
+    print(f"  supersampled bench frame ({card}): {CLI_RES}x{CLI_RES}, "
+          f"quality {CLI_QUALITY}, {flat.num_tris} triangles: {ms:.1f} ms, "
+          f"{live} live corner rays, {live / ms * 1e3:.4g} rays/s, walk "
+          f"launches {_ran(launches)}")
+    _check_image(img, "supersampled bench frame")
+    single = render_image(flat, dataclasses.replace(cfg,
+                                                    use_multisampling=False),
+                          cam)
+    med = float((img - single).abs().amax(-1).median())
+    print(f"  against the single-sample frame: median pixel difference "
+          f"{med:.4f}")
+    if med > 0.08:
+        raise AssertionError("the supersampled frame strays from the "
+                             "single-sample frame")
+    walks = _held_walks(held, "cli bench frame", record)
+    busy = _busy(lambda: [supersample_colors(flat, cfg, cam, *b) for b in
+                          _batches(cfg, dev, CLI_PROFILED_BATCHES["bench"])],
+                 f"{CLI_PROFILED_BATCHES['bench']} of its batches")
+    result["bench"] = {"ms": ms, "live_rays": live, "rays_per_s":
+                       live / ms * 1e3, "launches": _ran(launches),
+                       "busy_share": busy, **walks}
+
+    # (b) The CLI on the demo scene: supersampled, eight reflections.
+    demo_png = out_dir / "demo.png"
+    per_batch = (CLI_QUALITY + 1) * (8 + 1) * 2
+    batches = -(-CLI_RES ** 2 // (RenderConfig().tile_pixels
+                                  // (4 ** CLI_QUALITY * 4)))
+    kept = {int(f * batches) for f in CLI_DEMO_BATCHES}
+    held = _HeldCalls(lambda i: i // per_batch in kept,
+                      RenderConfig().tile_pixels)
+    reset_launches()
+    with counting_corner_rays(dev) as rays, recording_walks(held), \
+            returned_images() as images:
+        _, ms = _cli(["render", "--scene", ASSETS / "demo.toml", "--width",
+                      CLI_RES, "--height", CLI_RES, "--multisample",
+                      CLI_QUALITY, "--out", demo_png], dev)
+    launches = read_launches()
+    _require(launches, "nearest", "any_hit")
+    live = int(rays)
+    (img,) = images
+    print(f"  cli render of assets/demo.toml ({card}): {CLI_RES}x{CLI_RES}, "
+          f"--multisample {CLI_QUALITY}, 8 reflections: {ms:.1f} ms, {live} "
+          f"live corner rays, {live / ms * 1e3:.4g} rays/s, walk launches "
+          f"{_ran(launches)}")
+    if not np.array_equal(read_image(str(demo_png)), to_uint8(img)):
+        raise AssertionError("the demo PNG does not read back as the image")
+    walks = _held_walks(held, "cli demo frame", record)
+    dargs = _cli_args(ASSETS / "demo.toml", CLI_RES, dev,
+                      multisample=CLI_QUALITY)
+    scene, scene_cam = cli._load_scene(dargs)
+    demo = cli._flatten(scene, dargs)
+    dcfg = cli._config(dargs)
+    dcam = cli._camera(dargs, 1.0, scene_cam)
+    busy = _busy(lambda: [supersample_colors(demo, dcfg, dcam, *b) for b in
+                          _batches(dcfg, dev, CLI_PROFILED_BATCHES["demo"])],
+                 f"{CLI_PROFILED_BATCHES['demo']} of its batches")
+    result["demo"] = {"ms": ms, "live_rays": live, "rays_per_s":
+                      live / ms * 1e3, "launches": _ran(launches),
+                      "busy_share": busy, **walks}
+
+    # (c) The debug channels: one primary query each.
+    for mode in ("normals", "convex"):
+        png = out_dir / f"demo_{mode}.png"
+        reset_launches()
+        _, ms = _cli(["render", "--scene", ASSETS / "demo.toml", "--width",
+                      CLI_RES, "--height", CLI_RES, "--render-mode", mode,
+                      "--out", png], dev)
+        launches = read_launches()
+        _require(launches, "nearest", absent=("any_hit",))
+        px = read_image(str(png)).reshape(-1, 3)
+        if mode == "convex":
+            allowed = {(0, 0, 0), (0, 128, 0), (255, 0, 0)}
+            seen = {tuple(int(v) for v in c) for c in np.unique(px, axis=0)}
+            if not (seen <= allowed and len(seen) == 3):
+                raise AssertionError(f"convex channel colors {seen}")
+        elif not px.any():
+            raise AssertionError("the normals channel is black")
+        print(f"  cli render --render-mode {mode} ({card}): {ms:.1f} ms, "
+              f"walk launches {_ran(launches)}")
+        result[mode] = {"ms": ms, "launches": _ran(launches)}
+
+    # (d) animate into AVI files, read back, then --resume.
+    avi, frames_dir = out_dir / "turn.avi", out_dir / "turn_frames"
+    anim = ["animate", "--scene", ASSETS / "demo.toml", "--width",
+            CLI_ANIM_RES, "--height", CLI_ANIM_RES, "--frames",
+            CLI_ANIM_FRAMES, "--codec", "DIB ", "--out", avi]
+    reset_launches()
+    text, ms = _cli(anim, dev)
+    launches = read_launches()
+    writer = text.rsplit(", ", 1)[-1].split(")")[0]
+    total, wh, chunks = _avi(avi)
+    first = read_image(str(frames_dir / "frame_0000.png"))
+    if (total, wh, len(chunks)) != (CLI_ANIM_FRAMES, (CLI_ANIM_RES,) * 2,
+                                    CLI_ANIM_FRAMES) or not np.array_equal(
+            _dib_rgb(chunks[0], *wh), first):
+        raise AssertionError("the DIB AVI does not read back")
+    print(f"  cli animate ({card}): {CLI_ANIM_FRAMES} frames at "
+          f"{CLI_ANIM_RES}x{CLI_ANIM_RES} into a DIB AVI by {writer} in "
+          f"{ms:.1f} ms, walk launches {_ran(launches)}; read back: {total} "
+          "frames, frame 0 is its PNG")
+    result["animate"] = {"ms": ms, "launches": _ran(launches),
+                         "writer": writer}
+    try:
+        from PIL import Image
+    except ImportError:
+        print("  MJPG: Pillow does not import here, so no JPEG frames")
+    else:
+        reset_launches()
+        mjpg = out_dir / "turn_mjpg.avi"
+        _cli(anim[:-4] + ["--codec", "MJPG", "--out", mjpg, "--frame-dir",
+                          frames_dir, "--resume"], dev)
+        total, _, chunks = _avi(mjpg)
+        with Image.open(io.BytesIO(chunks[0])) as jpeg:
+            dec = np.asarray(jpeg.convert("RGB"))
+        err = float(np.abs(dec.astype(int) - first.astype(int)).mean())
+        if total != CLI_ANIM_FRAMES or err > 8.0 or any(read_launches()
+                                                       .values()):
+            raise AssertionError("the MJPG AVI does not read back")
+        print(f"  MJPG from the same frames (all resumed): {total} frames, "
+              f"frame 0 within {err:.2f} of its PNG on average")
+    keep = (frames_dir / "frame_0002.png").read_bytes()
+    (frames_dir / "frame_0002.png").unlink()
+    before = avi.read_bytes()
+    with returned_images() as images:
+        _cli(anim + ["--resume"], dev)
+    if len(images) != 1 or avi.read_bytes() != before or (
+            frames_dir / "frame_0002.png").read_bytes() != keep:
+        raise AssertionError("--resume did not re-render just the missing "
+                             "frame into the same AVI")
+    print("  --resume with frame 2's PNG deleted: one frame rendered, the "
+          "same AVI bytes")
+
+    # (e) A fit, a debug ray path and the viewer.
+    text, ms = _cli(["fit", "--scene", ASSETS / "crate.toml", "--width",
+                     CLI_FIT_RES, "--height", CLI_FIT_RES, "--steps", 2,
+                     "--out", out_dir / "fit"], dev)
+    losses = [float(x) for x in
+              text.split("loss ")[1].split(" (")[0].split(" -> ")]
+    if not (all(map(math.isfinite, losses))
+            and (out_dir / "fit" / "final.png").exists()):
+        raise AssertionError(f"fit: {text}")
+    print(f"  cli fit --steps 2 on assets/crate.toml at {CLI_FIT_RES}x"
+          f"{CLI_FIT_RES}: loss {losses[0]:.6f} -> {losses[1]:.6f}, "
+          f"{ms:.1f} ms ({card})")
+    # The center pixel (as the reference's ticker casts), and the middle
+    # pixel of the front right sphere on the frame's center row (the camera
+    # looks through the front spheres' centers' height): a lit point of a
+    # reflective sphere, so its path holds a reflection segment.
+    cpu_demo = scene.flatten(device="cpu", build_octree=False)
+    row = CLI_RES // 2
+    gx = np.nonzero((read_image(str(out_dir / "demo_convex.png"))[row]
+                     == (0, 128, 0)).all(-1))[0]
+    gx = gx[gx > CLI_RES // 2]
+    if not gx.size:
+        raise AssertionError("no sphere on the convex channel's center row")
+    sphere = (float(gx[gx.size // 2]), float(row))
+    for px, py in ((None, None), sphere):
+        got = cast_screen_ray(demo, dcfg, dcam, px, py)
+        ref = cast_screen_ray(cpu_demo, dcfg, dcam, px, py)
+        if px is not None and not (len(got.ray) > 1
+                                   and (got.kind == REFLECTION).any()):
+            raise AssertionError(f"the sphere pixel {sphere} spawns no "
+                                 f"reflection: kinds {got.kind}")
+        same = all(np.array_equal(getattr(got, f), getattr(ref, f))
+                   for f in ("ray", "level", "kind", "hit", "tri"))
+        err = max(float(np.abs(getattr(got, f) - getattr(ref, f)).max())
+                  for f in ("start", "end"))
+        print(f"  cast_screen_ray at pixel "
+              f"{'center' if px is None else (px, py)} of the demo: "
+              f"{len(got.ray)} segments (kinds {got.kind.tolist()}, hits "
+              f"{got.hit.tolist()}), card against the CPU: ids, kinds "
+              f"and hits {'equal' if same else 'DIFFER'}, points within "
+              f"{err:.2e}")
+        if not same or err > 1e-3:
+            raise AssertionError("cast_screen_ray differs between card and "
+                                 "CPU")
+    # The viewer last: its spin turns the demo's first object.
+    vargs = _cli_args(ASSETS / "demo.toml", CLI_VIEW_RES, dev)
+    sess = InteractiveSession(demo, cli._config(vargs), host_scene=scene,
+                              flatten_kwargs=cli._flatten_kwargs(vargs))
+    t0 = time.perf_counter()
+    shown = [sess.current_image()]
+    if sess.handle_key("\r") != "trace":
+        raise AssertionError("Enter does not trace")
+    shown.append(sess.render_full())
+    if sess.handle_key("j") != "move":
+        raise AssertionError("j does not spin the first object")
+    shown.append(sess.current_image())
+    torch.cuda.synchronize()
+    if any(not s.any() for s in shown) or shown[1].shape != (
+            CLI_VIEW_RES, CLI_VIEW_RES, 3):
+        raise AssertionError("the viewer shows a black frame")
+    print(f"  view, scripted: preview, Enter ({CLI_VIEW_RES}x{CLI_VIEW_RES}), "
+          f"a spin that re-bakes, preview: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({card})")
+    record.append({"what": "cli", **result})
+    return result
+
+
 def _kernel_entry(name, replaces, launches, err, rows,
                   source="raytpu_torch/kernels/csrc/walk.cu"):
     """One kernel's line: times, bound, the bound's share of the time and
@@ -3573,6 +4018,8 @@ def main():
     phase_profile(card, flat, cfg, rays, (iscene, icfg, camera),
                   flagship["render"], record)
     clock("profile")
+    cli = phase_cli(dev, card, flat, args.out, record)
+    clock("cli")
 
     def rows_of(rows, any_hit, pretest):
         return [r for r in rows if r["kw"]["any_hit"] == any_hit
@@ -3699,7 +4146,8 @@ def main():
          "flagship": {k: v for k, v in flagship.items()
                       if k not in ("rows", "render")},
          "instanced_32": inst32["turns_ms"],
-         "mxu_image": mxu["image"], "query": query, "records": record},
+         "mxu_image": mxu["image"], "query": query, "cli": cli,
+         "records": record},
         indent=1, default=str))
     print(f"[done] {time.perf_counter() - started:.0f} s")
     print(card)

@@ -12,7 +12,11 @@ cluster walk, the JAX package's ``AUTO`` dispatch among them and shadow
 clearance.  The cluster walks are CUDA kernels (``kernels/csrc/``: the
 classic and prepick walks, the subcluster walk, and the walk whose pair
 test runs on the tensor cores, ``mxu``); every tensor that lies on the CPU
-goes through their plain PyTorch version instead.
+goes through their plain PyTorch version instead.  Around the render sit
+adaptive supersampling and the debug channels (``render/supersample.py``,
+``render/debug.py``), the scene loaders (TOML, OBJ, FBX: ``scene/``),
+PNG and AVI output (``io/``) and the CLI (``cli/``, ``python -m
+raytpu_torch``).
 
 Entry points put their tensors on the card unless the caller names another
 device (``device.py``).

@@ -19,3 +19,10 @@ def resolve(device) -> torch.device:
             f"device {str(device)!r} asked for, but torch finds no CUDA "
             "device; name device='cpu' to run on the CPU")
     return dev
+
+
+def distribution_unported(what: str) -> NotImplementedError:
+    """The refusal of what needs more than one device: the port renders
+    and fits on one (``ROADMAP.md``, queue 1, distribution)."""
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md, queue 1, distribution")

@@ -15,8 +15,8 @@ The walk reads the bake's cluster tables, not the current parameters:
 between re-bakes the detached hit search lags the geometry (the recompute
 of u, v and t always uses the current values).  ``fit(rebuild_every=N)``
 re-bakes every N steps (``rebuild_accel``).  The sharded fit of the
-reference (a device mesh) waits for distribution: ROADMAP.md, queue 1
-item 8.
+reference (a device mesh) waits for distribution: ROADMAP.md, queue 1,
+distribution.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from raytpu_torch.config import Quantize, RenderConfig
 from raytpu_torch.core.camera import Camera, camera_rays
+from raytpu_torch.device import distribution_unported
 from raytpu_torch.diff.params import (GEOMETRY, SHADE_COLUMNS,
                                       SHADE_CONST_FIELDS, TEXTURE,
                                       apply_params, extract_params)
@@ -45,9 +46,7 @@ def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
 
 def _refuse_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError(
-            "a sharded fit over a device mesh is not ported yet: ROADMAP.md, "
-            "queue 1 item 8 (distribution)")
+        raise distribution_unported("a sharded fit over a device mesh")
 
 
 def render_loss(scene: FlatScene, cfg: RenderConfig,

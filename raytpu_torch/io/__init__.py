@@ -1,1 +1,1 @@
-"""Input and output: fit checkpoints."""
+"""Input and output: images, AVI video and fit checkpoints."""

@@ -30,13 +30,18 @@ search, inputs and outputs alike, and recomputes (u, v, t) from the hit
 triangle's gathered row, so gradients reach the scene parameters through
 shading and the row gather, never through the walk (``_trace_level``).
 
-Supersampling and the debug channels are not ported yet; asking for them
-raises ``NotImplementedError``.
+``cfg.use_multisampling`` hands the frame to the adaptive supersampler
+(render/supersample.py), which traces its corner rays through
+``trace_colors``; the debug channels (``RenderMode.NORMALS``,
+``CONVEXFLAG``) are one primary query each (``debug_mode_colors``), and
+``_trace_level(capture_hits=True)`` hands render/debug.py the level's own
+hits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,20 +76,6 @@ class RaySet(NamedTuple):
     ignore_mesh: torch.Tensor
     cur_ref: torch.Tensor  # (R,) refraction index of the medium
     alive: torch.Tensor
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, {item}")
-
-
-def check_supported(scene: FlatScene, cfg: RenderConfig):
-    """Raise ``NotImplementedError`` for what the port cannot render yet,
-    naming the ROADMAP.md item that ports it."""
-    if cfg.use_multisampling:
-        raise _unported("use_multisampling", "queue 1 item 3 (supersampling)")
-    if cfg.render_mode != RenderMode.SHADED:
-        raise _unported(f"render_mode={cfg.render_mode.name}",
-                        "queue 1 item 4 (debug channels)")
 
 
 def shade_row_views(s, mesh_as_value: bool = False):
@@ -309,9 +300,13 @@ def _clear_directional(clusters, dl, hit_tri, frag_pos, tmax_q):
 
 
 def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
-                 is_max_level: bool, query):
+                 is_max_level: bool, query, capture_hits: bool = False):
     """One wavefront level: intersect, shade, and spawn the reflection
-    child and (in scenes with transparency) the refraction child."""
+    child and (in scenes with transparency) the refraction child.
+
+    ``capture_hits``: also return ``(hit, frag_pos)``, so that
+    render/debug.py draws the level's own intersections instead of
+    querying again."""
     # Dead lanes become non-finite: they never hit and stay out of the
     # walk's tile beams.
     direction = torch.where(rays.alive[..., None], rays.direction, _NAN)
@@ -428,7 +423,10 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
         # so silhouette-adjacent hits carry d(pixel)/d(edge distance).
         stm = 1.0 + torch.where(mask, soft_vis, 0.0)
         a, b, c = a * stm[..., None], b * stm[..., None], c * stm
-    return LevelRecord(mask=mask, a=a, b=b, c=c), children
+    record = LevelRecord(mask=mask, a=a, b=b, c=c)
+    if capture_hits:
+        return record, children, (hit, frag_pos)
+    return record, children
 
 
 def _inverse(order):
@@ -438,24 +436,69 @@ def _inverse(order):
     return inv
 
 
-def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
-                 query=None):
-    """Batched CastRay: colors (R, 3) for an arbitrary set of primary rays.
-    Miss = black (RayTracer.cs:729-735).  ``query``: the nearest-hit
-    backend (default: cfg's intersector)."""
-    check_supported(scene, cfg)
-    if query is None:
-        query = _default_query(cfg)
+def primary_rays(origin, direction, alive=None) -> RaySet:
+    """Primary rays: no ignore ids, in air, all alive unless ``alive``
+    says otherwise."""
     r0 = origin.shape[0]
     dev = origin.device
-    rays = RaySet(
+    return RaySet(
         origin=origin,
         direction=direction,
         ignore_tri=torch.full((r0,), -1, dtype=torch.int32, device=dev),
         ignore_mesh=torch.full((r0,), -1, dtype=torch.int32, device=dev),
         cur_ref=torch.ones((r0,), dtype=torch.float32, device=dev),
-        alive=torch.ones((r0,), dtype=torch.bool, device=dev),
+        alive=(torch.ones((r0,), dtype=torch.bool, device=dev)
+               if alive is None else alive),
     )
+
+
+def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin,
+                      direction, query=None):
+    """Diagnostic render channels (RayTracer.cs:563-566,
+    raytpu/render/wavefront.py:541-584).
+
+    One primary nearest-hit, no recursion or lights: ``NORMALS`` clamps the
+    fragment normal into RGB like XNA's ``new Color(Vector3)`` (negative
+    components saturate to 0); ``CONVEXFLAG`` paints convex meshes green,
+    the rest red.  Misses stay black."""
+    if query is None:
+        query = _default_query(cfg)
+    hit = query(scene, origin, direction, cull=True)
+    td = _gather_tri(scene, hit.tri)
+    mat = scene.mesh_material[td["mesh"]]
+    if cfg.render_mode == RenderMode.NORMALS:
+        interp = scene.mat_interp_normals[mat]
+        n_lerped = normalize(
+            td["n1"]
+            + (td["n2"] - td["n1"]) * hit.u[..., None]
+            + (td["n3"] - td["n1"]) * hit.v[..., None])
+        normal = torch.where(interp[..., None], n_lerped, td["snormal"])
+        color = torch.clamp(normal, 0.0, 1.0)
+    elif cfg.render_mode == RenderMode.CONVEXFLAG:
+        convex = scene.mesh_convex[td["mesh"]]
+        green = origin.new_tensor([0.0, 128.0 / 255.0, 0.0])
+        red = origin.new_tensor([1.0, 0.0, 0.0])
+        color = torch.where(convex[..., None], green, red)
+    else:
+        raise ValueError(cfg.render_mode)
+    return torch.where(hit.hit[..., None], color, 0.0)
+
+
+def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
+                 alive=None, query=None):
+    """Batched CastRay: colors (R, 3) for an arbitrary set of primary rays.
+    Miss = black (RayTracer.cs:729-735).  ``alive`` (optional (R,) bool):
+    the rays that are traced; the others take NaN directions and come back
+    black (the supersampler's dead quadrants).  ``query``: the nearest-hit
+    backend (default: cfg's intersector).  A debug ``render_mode`` gives
+    ``debug_mode_colors``."""
+    if query is None:
+        query = _default_query(cfg)
+    if cfg.render_mode != RenderMode.SHADED:
+        if alive is not None:
+            direction = torch.where(alive[..., None], direction, _NAN)
+        return debug_mode_colors(scene, cfg, origin, direction, query)
+    rays = primary_rays(origin, direction, alive)
     # The children's layout (module docstring): dual-branch doubling, or
     # merged into the parents' slots.
     dual = scene.has_transparent and scene.has_dual_branch
@@ -517,19 +560,32 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
     return color
 
 
-def render_rays(scene: FlatScene, cfg: RenderConfig, origin, direction):
-    """Trace an arbitrary ray batch tile by tile (``cfg.tile_pixels`` rays
-    each; the last tile is padded with rays that are traced and dropped)."""
+def _pad_rays(origin, direction, tile: int):
+    """Pad a ray batch to whole tiles with rays that are traced and
+    dropped: (origin, direction, the batch's own count)."""
     n = origin.shape[0]
-    pad = (-n) % cfg.tile_pixels
+    pad = (-n) % tile
     if pad:
         origin = torch.cat([origin, origin.new_zeros((pad, 3))])
         direction = torch.cat([direction, direction.new_ones((pad, 3))])
-    colors = [
-        trace_colors(scene, cfg, origin[s:s + cfg.tile_pixels],
-                     direction[s:s + cfg.tile_pixels])
-        for s in range(0, origin.shape[0], cfg.tile_pixels)
-    ]
+    return origin, direction, n
+
+
+def render_rays(scene: FlatScene, cfg: RenderConfig, origin, direction,
+                on_tile=None):
+    """Trace an arbitrary ray batch tile by tile (``cfg.tile_pixels`` rays
+    each; the last tile is padded with rays that are traced and dropped).
+    ``on_tile(done, total, colors)``, where given, runs after each tile,
+    with the list of the tiles' colors so far."""
+    origin, direction, n = _pad_rays(origin, direction, cfg.tile_pixels)
+    tile = cfg.tile_pixels
+    tiles = origin.shape[0] // tile
+    colors = []
+    for i in range(tiles):
+        colors.append(trace_colors(scene, cfg, origin[i * tile:(i + 1) * tile],
+                                   direction[i * tile:(i + 1) * tile]))
+        if on_tile is not None:
+            on_tile(i + 1, tiles, colors)
     return torch.cat(colors)[:n]
 
 
@@ -552,18 +608,47 @@ def block_order_perm(width: int, height: int, block: int, device):
 
 def render_image(scene: FlatScene, cfg: RenderConfig,
                  camera: Optional[Camera] = None, progress=None,
-                 watch_path: Optional[str] = None):
+                 watch_path: Optional[str] = None, watch_every: int = 4):
     """Full-frame render → (H, W, 3) float32 on the scene's device.
 
     Primary rays go through the integer pixel coordinates and are traced in
-    square-block order (RayTracer.cs:391-428)."""
-    if progress is not None or watch_path is not None:
-        raise _unported("progress/watch_path", "queue 1 item 9 (CLI and IO)")
+    square-block order (RayTracer.cs:391-428).  With
+    ``cfg.use_multisampling`` the adaptive 4-corner supersampler runs
+    instead (RayTracer.cs:128-311, render/supersample.py).
+
+    ``progress``: ``callback(done, total)`` after each tile of
+    ``cfg.tile_pixels`` rays, the reference's ``Progress`` fraction
+    (RayTracer.cs:43-46).  ``watch_path``: write the partial frame (traced
+    tiles filled in, the rest black) to this PNG every ``watch_every``
+    tiles but the last, the analog of watching the reference's
+    RenderTarget fill in (Game1.cs:389-416).  The supersampler reports
+    neither: with ``cfg.use_multisampling`` both are ignored, with a
+    warning."""
     camera = camera or Camera(aspect=cfg.width / cfg.height)
+    if cfg.use_multisampling:
+        from raytpu_torch.render.supersample import render_image_multisampled
+
+        if progress is not None or watch_path is not None:
+            # As in the JAX package, the supersampler reports no tiles.
+            warnings.warn("progress and watch_path are ignored with "
+                          "use_multisampling", stacklevel=2)
+        return render_image_multisampled(scene, cfg, camera)
     o, d = camera_rays(camera, cfg.width, cfg.height, device=scene.device)
     block = max(1, int(cfg.cull_tile ** 0.5))
     perm = block_order_perm(cfg.width, cfg.height, block, scene.device)
-    colors = render_rays(scene, cfg, o[perm], d[perm])
-    out = torch.empty_like(colors)
-    out[perm] = colors
-    return out.reshape(cfg.height, cfg.width, 3)
+
+    def image(colors):
+        out = torch.zeros((perm.shape[0], 3), dtype=colors.dtype,
+                          device=colors.device)
+        out[perm[:colors.shape[0]]] = colors[:perm.shape[0]]
+        return out.reshape(cfg.height, cfg.width, 3)
+
+    def on_tile(done, tiles, parts):
+        if progress is not None:
+            progress(done, tiles)
+        if watch_path is not None and done < tiles and done % watch_every == 0:
+            from raytpu_torch.io.image import write_image
+
+            write_image(watch_path, image(torch.cat(parts)))
+
+    return image(render_rays(scene, cfg, o[perm], d[perm], on_tile=on_tile))

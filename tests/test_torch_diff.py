@@ -374,7 +374,7 @@ def test_fit_with_rebakes_keeps_shapes_and_descends():
 def test_sharded_fit_raises():
     flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, distribution"):
         pfit.make_fit_step(flat, PCFG, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, distribution"):
         pfit.fit(flat, PCFG, Camera(), np.zeros((W, W, 3)), mesh=object())

@@ -121,25 +121,87 @@ def test_walk_opt_ins_render_the_same_image(rendered):
         assert torch.equal(render_rays(flat, opt, o, d), colors), change
 
 
+OPTIONS_CFG = dict(width=16, height=16, max_reflections=2,
+                   quantize=Quantize.NONE, intersector=Intersector.AUTO)
+
+
+def _options_render(jcfg, monkeypatch, **kw):
+    """The flagship (a convex glass sphere beside a crate, under 4,096
+    triangles: both packages sweep it) rendered by the JAX package and by
+    the port on the JAX camera's rays (tests/torch_scenes.py::
+    reference_camera_rays), with ``render_image``'s keywords ``kw``."""
+    from raytpu.render.wavefront import render_image as jax_render_image
+    from raytpu_torch.render import supersample, wavefront
+    from raytpu_torch.config import RenderConfig as TorchConfig
+    from tests.torch_scenes import (reference_camera_rays,
+                                    reference_screen_rays)
+
+    monkeypatch.setattr(wavefront, "camera_rays", reference_camera_rays)
+    monkeypatch.setattr(supersample, "rays_through_screen",
+                        reference_screen_rays)
+    jflat = jax_bake(flagship("jax"), 16)
+    ref = np.asarray(jax_render_image(jflat, jcfg, JaxCamera(), **kw))
+    cfg = TorchConfig.from_json(jcfg.to_json())
+    return ref, cfg, to_port(jflat)
+
+
 @pytest.mark.parametrize("change", [
     dict(use_multisampling=True),
     dict(render_mode=RenderMode.NORMALS),
     dict(render_mode=RenderMode.CONVEXFLAG),
 ])
-def test_unported_config_raises(change):
-    flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_image(flat, dataclasses.replace(CFG, **change))
+def test_render_options_match_reference(change, monkeypatch):
+    """Supersampling and the debug channels through ``render_image``, the
+    JAX package's to atol 1e-5 (the flag colors exactly)."""
+    jcfg = RenderConfig(**OPTIONS_CFG, **change)
+    ref, cfg, flat = _options_render(jcfg, monkeypatch)
+    img = render_image(flat, cfg)
+    assert img.shape == (16, 16, 3) and (ref.max(-1) > 0).mean() > 0.3
+    exact = cfg.render_mode.name == "CONVEXFLAG"
+    np.testing.assert_allclose(img.numpy(), ref, rtol=0,
+                               atol=0 if exact else 1e-5)
+    if cfg.use_multisampling:
+        # The supersampler reports no tiles: progress is ignored, aloud.
+        with pytest.warns(UserWarning, match="ignored with use_multisampling"):
+            again = render_image(flat, cfg, progress=lambda done, total: None)
+        assert torch.equal(again, img)
 
 
-def test_unported_scene_and_entry_points_raise():
-    """What the renderer still refuses: ``render_image``'s progress and
-    watch options."""
-    flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_image(flat, CFG, progress=lambda done, total: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_image(flat, CFG, watch_path="frame.png")
+def test_progress_and_watch_match_reference(monkeypatch, tmp_path):
+    """``render_image``'s progress callback and partial frames: the same
+    calls as the JAX package's, and the same partial images (written every
+    second tile of 32 rays but the last), to atol 1e-5."""
+    import raytpu.io.image as jimage
+    import raytpu_torch.io.image as timage
+
+    seen = {"jax": ([], []), "torch": ([], [])}
+    for pkg, mod in (("jax", jimage), ("torch", timage)):
+        write = mod.write_image
+
+        def spy(path, img, pkg=pkg, write=write):
+            arr = img.numpy() if isinstance(img, torch.Tensor) else img
+            seen[pkg][1].append((path, np.array(arr)))
+            write(path, img)
+
+        monkeypatch.setattr(mod, "write_image", spy)
+
+    def progress(pkg):
+        return lambda done, total: seen[pkg][0].append((done, total))
+
+    jcfg = RenderConfig(**OPTIONS_CFG, tile_pixels=32)
+    kw = dict(watch_every=2)
+    ref, cfg, flat = _options_render(
+        jcfg, monkeypatch, progress=progress("jax"),
+        watch_path=str(tmp_path / "jax.png"), **kw)
+    img = render_image(flat, cfg, progress=progress("torch"),
+                       watch_path=str(tmp_path / "torch.png"), **kw)
+    assert seen["torch"][0] == seen["jax"][0] == [(i, 8) for i in range(1, 9)]
+    parts, ref_parts = seen["torch"][1], seen["jax"][1]
+    assert len(parts) == len(ref_parts) == 3
+    for (_, got), (_, want) in zip(parts, ref_parts):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-5)
+    assert torch.equal(img, render_image(flat, cfg))
 
 
 @pytest.mark.parametrize("change", [dict(cull_prepick=8),

@@ -176,3 +176,37 @@ def random_rays(seed: int, n: int):
 def t(a):
     """A numpy array as a CPU tensor (copied, so it is writable)."""
     return torch.from_numpy(np.array(a))
+
+
+def reference_screen_rays(camera, width, height, sx, sy):
+    """The JAX package's rays through the screen points ``sx``, ``sy`` (the
+    port's tensors) for the port's ``camera``, as tensors on their device.
+
+    The two packages invert the camera with different LAPACK routines
+    (~4e-6 apart on unit directions, test_torch_core.py); patched in for
+    the port's own rays, it makes both packages trace the same rays."""
+    import dataclasses
+
+    import jax
+
+    from raytpu.core.camera import Camera as JaxCamera
+    from raytpu.core.camera import rays_through_screen
+
+    jcam = JaxCamera(**dataclasses.asdict(camera))
+    fn = _REFERENCE_RAYS.setdefault(
+        "fn", jax.jit(rays_through_screen, static_argnums=(0, 1, 2)))
+    o, d = fn(jcam, width, height, sx.cpu().numpy(), sy.cpu().numpy())
+    return t(o).to(sx.device), t(d).to(sx.device)
+
+
+def reference_camera_rays(camera, width, height, device="cuda"):
+    """``camera_rays`` with the JAX package's rays (reference_screen_rays)."""
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32),
+                            torch.arange(width, dtype=torch.float32),
+                            indexing="ij")
+    o, d = reference_screen_rays(camera, width, height, xs.reshape(-1),
+                                 ys.reshape(-1))
+    return o.to(device), d.to(device)
+
+
+_REFERENCE_RAYS = {}
