@@ -1038,6 +1038,7 @@ def plain_query(cfg):
         hit, rows = assemble_hit(out, origin.shape[0], any_hit)
         return (hit, rows) if with_rows else hit
 
+    query.supports_rows = True
     return query
 
 
@@ -1171,13 +1172,13 @@ def phase_frame(dev, record):
     return flat, cfg, (o, d), img, checked, launches
 
 
-def _check_image(img, what):
+def _check_image(img, what, least=0.5):
     if torch.isnan(img).any():
         raise AssertionError(f"{what} has NaN")
     nonblack = float((img.reshape(-1, 3).max(-1).values > 0).float().mean())
     print(f"  image: no NaN, nonblack fraction {nonblack:.4f}, mean "
           f"{float(img.mean()):.5f}")
-    if nonblack < 0.5:
+    if nonblack < least:
         raise AssertionError(f"{what} is mostly black")
     return nonblack
 
@@ -2281,6 +2282,7 @@ def phase_flagship(dev, card, record):
                        "live": int(torch.isfinite(direction).all(-1).sum())})
         return res
 
+    both.supports_rows = True
     with recording_walks() as calls:
         colors = trace_colors(flat, cfg, o[perm], d[perm], query=both)
     again = torch.empty_like(colors)
@@ -2753,6 +2755,7 @@ def _fused_query(**fused_kw):
                                  any_hit=any_hit, tile_size=RAYS_PER_TILE,
                                  return_rows=with_rows, **fused_kw)
 
+    query.supports_rows = True
     return query
 
 
@@ -2771,6 +2774,7 @@ def _recording_hook(calls, base):
                       "cull": kw.get("cull", True), "hit": hit})
         return res
 
+    query.supports_rows = getattr(base, "supports_rows", False)
     return query
 
 
@@ -3082,7 +3086,7 @@ def _record_frame(flat, cfg, o, d, base):
                                  dot(lt["direction"][i], normal).abs()))
         return light_contrib(lt, i, frag_pos, normal)
 
-    def surface_of(scene, cfg_, td, mat, u, v):
+    def surface_of(scene, cfg_, td, mat, u, v, texel_fetch=None):
         if scene.has_textures and cfg_.filtering == TextureFiltering.POINT:
             uv = (td["uv1"] + (td["uv2"] - td["uv1"]) * u[..., None]
                   + (td["uv3"] - td["uv1"]) * v[..., None])
@@ -3093,7 +3097,7 @@ def _record_frame(flat, cfg, o, d, base):
                 "raw": uv * size,
                 "use": scene.mat_use_texture[mat]
                 & (scene.mat_texture[mat] >= 0)})
-        return surface_color(scene, cfg_, td, mat, u, v)
+        return surface_color(scene, cfg_, td, mat, u, v, texel_fetch)
 
     def order_of(dead):
         order = compact(dead)
@@ -3107,6 +3111,8 @@ def _record_frame(flat, cfg, o, d, base):
             return base(scene, origin, direction, **kw)
         finally:
             inside[0] = False
+
+    query.supports_rows = getattr(base, "supports_rows", False)
 
     fused.compact_order, lights.light_contrib = order_of, contrib_of
     wavefront._surface_color = surface_of
@@ -3939,6 +3945,368 @@ def phase_cli(dev, card, flat, out_dir, record):
     return result
 
 
+# The [dist] phase: the sharded entry points on one card, at 4 shards (a
+# mesh of four entries of one device; 3 shards for a ragged ring).
+DIST_ENTRIES = 4
+DIST_RING_SHARDS = (4, 3)
+DIST_FIT_RES = 512
+
+
+def _ms(fn):
+    """(fn(), ms) by the host clock around a synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _ring_hits(got, want, any_hit, what):
+    """A ring query's merged hits against the whole scene's query on the
+    same rays: the same hit flags and, nearest, t bit for bit on every
+    hit; returns the rays whose winner differs (exact-t ties, which the
+    ring gives the shard visited first)."""
+    same = torch.equal(got.hit, want.hit)
+    if not any_hit:
+        same = same and _bits_equal(got.t[want.hit], want.t[want.hit])
+    if not same:
+        raise AssertionError(f"{what}: the ring's hits are not the whole "
+                             "scene's")
+    if any_hit:
+        return torch.zeros_like(got.hit)
+    return want.hit & (got.tri != want.tri)
+
+
+def _tie_query(ring, whole, scene, stats, resolve):
+    """A render query through ``ring`` that also runs ``whole`` (the
+    replicated render's query) on ``scene`` with the same inputs, holds
+    the ring's hits to it (``_ring_hits``) and counts the exact-t ties;
+    ``resolve``: the ties take the whole query's winner (same t), so the
+    frame must be the replicated frame bit for bit."""
+
+    from raytpu_torch.accel.traverse import Hit
+
+    def query(s, origin, direction, **kw):
+        got = ring(s, origin, direction, **kw)
+        want = whole(scene, origin, direction, **kw)
+        any_hit = kw.get("any_hit", False)
+        ties = _ring_hits(got, want, any_hit, "ring render query")
+        stats["queries"] += 1
+        stats["ties"] += int(ties.sum())
+        if resolve and bool(ties.any()):
+            got = Hit(*(torch.where(ties, w, g) for g, w in zip(got, want)))
+        return got
+
+    return query
+
+
+def _ring_frame(flat, cfg, camera, mesh, tables, what, img_rep, record,
+                least=0.5, kinds=("nearest", "any_hit")):
+    """The ring-sharded frame of ``flat`` (stripped of its per-triangle
+    tables, rendered from the prebuilt ``tables``: shards, shade and
+    texture shards) against the replicated frame ``img_rep``: its ms and
+    launches, then the same render with every ring query held to the
+    replicated query on its inputs (hits, t bit for bit, exact-t ties
+    counted) and, where there are ties, with the ties given the replicated
+    query's winners, which must be the replicated frame bit for bit.
+    ``least``: the frame's least nonblack share; ``kinds``: the walk
+    kernels the frame must launch."""
+    from raytpu_torch.dist import bigscene as big
+    from raytpu_torch.render.wavefront import (_default_query,
+                                               block_order_perm,
+                                               trace_colors)
+    from raytpu_torch.core.camera import camera_rays
+
+    shards, shade, tex = tables
+    stripped = big.strip_for_ring(flat)
+    def render():
+        return big.render_image_ring(stripped, cfg, camera, mesh,
+                                     shards=shards, shade=shade,
+                                     texshards=tex)
+
+    reset_launches()
+    img = render()
+    launches = read_launches()
+    ms = statistics.mean(_ms(render)[1] for _ in range(REPS))
+    _require(launches, *kinds)
+    _check_image(img, what, least)
+    o, d = camera_rays(camera, cfg.width, cfg.height, device=flat.device)
+    perm = block_order_perm(cfg.width, cfg.height,
+                            max(1, int(cfg.cull_tile ** 0.5)), flat.device)
+    ring, gather = big.make_ring_backends(shards, shade, mesh,
+                                          tile_size=cfg.cull_tile)
+    fetch = (None if tex is None else
+             big.make_texel_fetch_ring(tex, mesh))
+
+    def frame(query):
+        colors = trace_colors(stripped, cfg, o[perm], d[perm], query=query,
+                              gather=gather, texel_fetch=fetch)
+        out = torch.zeros_like(colors)
+        out[perm] = colors
+        return out.reshape(cfg.height, cfg.width, 3)
+
+    stats = {"queries": 0, "ties": 0}
+    held = frame(_tie_query(ring, _default_query(cfg), flat, stats, False))
+    if not torch.equal(held, img):
+        raise AssertionError(f"{what}: two ring frames differ")
+    differ = int((img != img_rep).any(-1).sum())
+    if stats["ties"]:
+        resolved = frame(_tie_query(ring, _default_query(cfg), flat,
+                                    dict(stats), True))
+        if not torch.equal(resolved, img_rep):
+            raise AssertionError(f"{what}: with its ties resolved the ring "
+                                 "frame is not the replicated frame")
+    elif differ:
+        raise AssertionError(f"{what}: {differ} pixels differ from the "
+                             "replicated frame without an exact-t tie")
+    print(f"  {what}: {ms:.1f} ms, launches {_ran(launches)}; "
+          f"{stats['queries']} ring queries held to the replicated "
+          f"query (hits, t bit for bit), {stats['ties']} exact-t ties, "
+          f"{differ} pixels differ from the replicated frame"
+          + (", the ties resolved it is that frame bit for bit"
+             if stats["ties"] else ", none"))
+    rec = {"what": what, "ms": ms, "launches": _ran(launches),
+           "queries": stats["queries"], "ties": stats["ties"],
+           "pixels_differ": differ}
+    record.append(rec)
+    return rec, launches
+
+
+def phase_dist(dev, card, flat, rays, img, out_dir, record):
+    """The port's distribution on one card, the shards sharing it: the
+    ray-sharded bench frame (1-D mesh of 4 and 2x2), ring queries at 4 and
+    3 shards on the frame's primary and shadow queries with every hop's
+    walk call held to the plain walk, a ring over the flagship's 3 blocks
+    at 4 shards, the ring-sharded bench and flagship frames, the sharded
+    and ring fit steps, elastic re-dispatch and the CLI's refusal of more
+    devices than there are."""
+    import dataclasses
+
+    from raytpu_torch import Intersector, Quantize, RenderConfig
+    from raytpu_torch.core.camera import Camera, camera_rays
+    from raytpu_torch.diff.fit import make_fit_step
+    from raytpu_torch.diff.params import GEOMETRY, extract_params
+    from raytpu_torch.dist import bigscene as big
+    from raytpu_torch.dist.elastic import render_units
+    from raytpu_torch.dist.mesh import make_mesh, replicate_scene
+    from raytpu_torch.dist.render import render_image_sharded
+    from raytpu_torch.kernels.fused import nearest_hit_fused
+    from raytpu_torch.render.wavefront import (_default_query, render_image,
+                                               render_rays, trace_colors)
+
+    print(f"[dist] {card}; {DIST_ENTRIES} mesh entries of {dev}: the "
+          "shards share one card, so these times measure no "
+          "communication between cards")
+    n = DIST_ENTRIES
+    r = RES * RES
+    camera = Camera(position=(0.0, 28.0, 34.0), target=(0.0, 0.0, 0.0),
+                    aspect=1.0)
+    mesh = make_mesh([dev] * n)
+    out = {}
+
+    # (a) The ray-sharded frame: a shard is one tile of a quarter frame.
+    cfg = RenderConfig(width=RES, height=RES, max_reflections=0,
+                       tile_pixels=r // n, quantize=Quantize.NONE)
+    ref = render_image(flat, cfg, camera)
+    ref_ms = statistics.mean(
+        _ms(lambda: render_image(flat, cfg, camera))[1] for _ in range(REPS))
+    rep = replicate_scene(flat, mesh)
+    for label, m in (("1-D mesh of 4", mesh),
+                     ("2x2 mesh", make_mesh([dev] * n, axes=("hosts",
+                                                             "chips"),
+                                            shape=(2, 2)))):
+        got = render_image_sharded(rep, cfg, camera, m)
+        ms = statistics.mean(
+            _ms(lambda m=m: render_image_sharded(rep, cfg, camera, m))[1]
+            for _ in range(REPS))
+        same = torch.equal(got, ref)
+        print(f"  render_image_sharded, {label}: {ms:.1f} ms (render_image"
+              f" {ref_ms:.1f} ms), the same image bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"the sharded frame ({label}) differs")
+        out[f"sharded {label} ms"] = ms
+    out["render_image ms"] = ref_ms
+
+    # (b) Ring queries: the frame's primary and shadow queries.
+    qcfg = dataclasses.replace(cfg, tile_pixels=r)
+    calls = []
+    trace_colors(flat, qcfg, *rays,
+                 query=_recording_hook(calls, _default_query(qcfg)))
+    shards = {k: big.shard_scene_clusters(flat, make_mesh([dev] * k))
+              for k in DIST_RING_SHARDS}
+    rows = {}
+    for k in DIST_RING_SHARDS:
+        kmesh = make_mesh([dev] * k)
+        for call in calls:
+            kind = "any_hit" if call["any_hit"] else "nearest"
+            def ring(k=k, kmesh=kmesh, call=call):
+                return big.nearest_hit_ring(
+                    shards[k], call["origin"], call["direction"], kmesh,
+                    ignore_tri=call["ignore_tri"],
+                    ignore_mesh=call["ignore_mesh"], cull=call["cull"],
+                    tile_size=RAYS_PER_TILE, t_max=call["t_max"],
+                    any_hit=call["any_hit"])
+
+            with recording_walks() as walks:
+                got = ring()
+            ms = statistics.mean(_ms(ring)[1] for _ in range(REPS))
+            # k hops, each walking every entry's visiting block.
+            if len(walks) != k * k:
+                raise AssertionError(f"{len(walks)} walk calls for a ring "
+                                     f"of {k}")
+            ties = _ring_hits(got, call["hit"], call["any_hit"],
+                              f"ring of {k}, {kind}")
+            print(f"  ring of {k} shards, {kind} (cull {call['cull']}): "
+                  f"{ms:.1f} ms, {int(got.hit.sum())} hits, the whole "
+                  f"scene's; exact-t ties across shards: {int(ties.sum())}")
+            checked = check_recorded(walks, f"ring of {k} {kind} hop",
+                                     record, INSTANCED_TILE_STRIDE,
+                                     INSTANCED_LONGEST)
+            record.append({"what": f"ring of {k}, {kind}", "ms": ms,
+                           "ties": int(ties.sum())})
+            if k == n:
+                for row in checked:
+                    row["kernel_ms"] = _kernel_ms(row, REPS)
+                rows[kind] = checked
+    # A ring over the flagship's 3 blocks at 4 shards: one shard is all
+    # padding.
+    small = flagship_scene().flatten(cluster_size=128, device=dev)
+    nblocks = small.clusters["block"].shape[0]
+    if nblocks >= n:
+        raise AssertionError(f"the small bake has {nblocks} blocks")
+    o, d = camera_rays(Camera(position=FLAGSHIP_CAMERA, aspect=1.0), 256,
+                       256, device=dev)
+    sshards = big.shard_scene_clusters(small, mesh)
+    for any_hit, cull in ((False, True), (True, "reverse")):
+        want = nearest_hit_fused(small, o, d, any_hit=any_hit, cull=cull)
+        with recording_walks() as walks:
+            got = big.nearest_hit_ring(sshards, o, d, mesh, cull=cull,
+                                       any_hit=any_hit)
+        ties = _ring_hits(got, want, any_hit, "ring over 3 blocks")
+        check_recorded(walks, "ring over 3 blocks", record)
+        kind = "any-hit" if any_hit else "nearest"
+        print(f"  ring of {n} over {nblocks} blocks ({kind}): "
+              f"{int(got.hit.sum())} hits, the whole walk's; exact-t ties "
+              f"{int(ties.sum())}")
+
+    # (c) Ring-sharded frames against the replicated ones.
+    rcfg = dataclasses.replace(cfg, tile_pixels=r)
+    ring_rec, launches = _ring_frame(
+        flat, rcfg, camera, mesh,
+        (shards[n], big.shard_scene_shade(flat, mesh), None),
+        "ring-sharded bench frame", render_image(flat, rcfg, camera), record)
+    out["ring bench frame"] = ring_rec
+    fcfg = RenderConfig(width=FLAGSHIP_RES, height=FLAGSHIP_RES,
+                        max_reflections=FLAGSHIP_REFLECTIONS,
+                        tile_pixels=FLAGSHIP_RES ** 2,
+                        intersector=Intersector.PALLAS)
+    fcam = Camera(position=FLAGSHIP_CAMERA, aspect=1.0)
+    out["ring flagship"], _ = _ring_frame(
+        small, fcfg, fcam, mesh,
+        (sshards, big.shard_scene_shade(small, mesh),
+         big.shard_scene_textures(small, mesh)),
+        "ring-sharded flagship (textured, transparent, 3 bounces)",
+        render_image(small, fcfg, fcam), record, least=0.3,
+        kinds=("nearest",))
+
+    # (d) The sharded and ring fit steps against the unsharded step.  The
+    # ring's exact-t ties move a gradient to another triangle of the same
+    # t, so its step is held with its ties given the unsharded query's
+    # winners (counted), after a plain timed step.
+    gcfg = RenderConfig(width=DIST_FIT_RES, height=DIST_FIT_RES,
+                        max_reflections=0, tile_pixels=DIST_FIT_RES ** 2 // n,
+                        quantize=Quantize.NONE)
+    fo, fd = _frame_rays(DIST_FIT_RES, dev)
+    target = torch.full((DIST_FIT_RES ** 2, 3), 0.5, device=dev)
+    grads, losses, times = {}, {}, {}
+    ties = {"queries": 0, "ties": 0}
+    for label in ("unsharded", "sharded", "ring"):
+        if label == "ring":
+            params = big.extract_ring_params(flat, mesh)
+            opt = torch.optim.SGD([x for f in sorted(params)
+                                   for x in params[f]], lr=0.0)
+            step = big.make_ring_fit_step(
+                big.strip_for_ring(flat), gcfg, mesh, opt,
+                shards=shards[n], shade=big.shard_scene_shade(flat, mesh))
+        else:
+            params = extract_params(flat, GEOMETRY)
+            opt = torch.optim.SGD(list(params.values()), lr=0.0)
+            step = make_fit_step(flat, gcfg, opt, fields=GEOMETRY,
+                                 mesh=mesh if label == "sharded" else None)
+        loss = step(params, fo, fd, target)
+        times[label] = statistics.mean(
+            _ms(lambda: step(params, fo, fd, target))[1]
+            for _ in range(FIT_STEPS))
+        if label == "ring":
+            make = big.make_ring_backends
+
+            def resolving(*a, **kw):
+                query, gather = make(*a, **kw)
+                return _tie_query(query, _default_query(gcfg), flat, ties,
+                                  True), gather
+
+            big.make_ring_backends = resolving
+            try:
+                loss = step(params, fo, fd, target)
+            finally:
+                big.make_ring_backends = make
+        losses[label] = float(loss)
+        grads[label] = {f: (torch.cat([x.grad for x in params[f]])
+                            [:flat.tri_shade.shape[0]] if label == "ring"
+                            else params[f].grad) for f in GEOMETRY}
+    print(f"  ring fit step: {ties['queries']} ring queries held to the "
+          f"unsharded query, {ties['ties']} exact-t ties given its winners")
+    for label in ("sharded", "ring"):
+        excess = max(_grads_close(grads[label][f],
+                                  grads["unsharded"][f].cpu())
+                     for f in GEOMETRY)
+        lclose = math.isclose(losses[label], losses["unsharded"],
+                              rel_tol=FIT_RTOL)
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in grads[label].values())
+        print(f"  {label} fit step at {DIST_FIT_RES}x{DIST_FIT_RES}, "
+              f"{n} shards: {times[label]:.1f} ms (unsharded "
+              f"{times['unsharded']:.1f} ms), loss {losses[label]:.7g} / "
+              f"{losses['unsharded']:.7g}, gradients within rtol {FIT_RTOL}"
+              f" + atol {FIT_ATOL} x max|g|: {excess <= 0}")
+        if not (finite and lclose and excess <= 0):
+            raise AssertionError(f"the {label} fit step differs from the "
+                                 "unsharded one")
+        out[f"{label} fit step ms"] = times[label]
+    out["unsharded fit step ms"] = times["unsharded"]
+    out["ring fit ties"] = ties["ties"]
+
+    # (e) Elastic re-dispatch of the frame's quarters, one failing once.
+    ecfg = dataclasses.replace(qcfg, tile_pixels=r // n)
+
+    def quarter(q):
+        s = slice(q * r // n, (q + 1) * r // n)
+        return render_rays(flat, ecfg, rays[0][s], rays[1][s])
+
+    res, ms = _ms(lambda: render_units(
+        range(n), quarter, backoff_s=0.0,
+        inject_failure=lambda i, a: i == 2 and a == 1))
+    if not (all(x.ok for x in res) and res[2].attempts == 2
+            and torch.equal(torch.cat([x.result for x in res]), img)):
+        raise AssertionError("the re-dispatched quarters are not the frame")
+    print(f"  render_units over {n} quarters, quarter 2 failing once: "
+          f"{ms:.1f} ms, attempts {[x.attempts for x in res]}, the frame "
+          "bit for bit")
+
+    # (f) The CLI on one card: more devices than there are is refused.
+    if torch.cuda.device_count() == 1:
+        try:
+            _cli(["render", "--devices", "2", "--width", "8", "--height",
+                  "8", "--out", out_dir / "devices2.png"], dev)
+        except SystemExit as e:
+            print(f"  cli render --devices 2: {e}")
+            if "only 1 devices available" not in str(e):
+                raise AssertionError("--devices 2: not the refusal")
+        else:
+            raise AssertionError("--devices 2 rendered on one card")
+    return out, rows, launches
+
+
 def _kernel_entry(name, replaces, launches, err, rows,
                   source="raytpu_torch/kernels/csrc/walk.cu"):
     """One kernel's line: times, bound, the bound's share of the time and
@@ -4020,6 +4388,9 @@ def main():
     clock("profile")
     cli = phase_cli(dev, card, flat, args.out, record)
     clock("cli")
+    dist, dist_rows, dist_launches = phase_dist(dev, card, flat, rays, img,
+                                                args.out, record)
+    clock("dist")
 
     def rows_of(rows, any_hit, pretest):
         return [r for r in rows if r["kw"]["any_hit"] == any_hit
@@ -4138,6 +4509,16 @@ def main():
                 "mxu)", mxu[prec]["launches"][f"{kind}_mxu_{prec}"],
                 max([mxu["small_err"][prec]] + [r["err"] for r in rows]),
                 rows, "raytpu_torch/kernels/csrc/mxuwalk.cu"))
+    # This slice's path: the classic walk on ring shards, every hop of the
+    # ring-sharded bench frame (4 shards, finite caps from the earlier
+    # shards; cull "reverse" for the shadow rays).
+    for kind, replaces in (("nearest", "raytpu/kernels/fused.py:959"),
+                           ("any_hit", "raytpu/kernels/fused.py:299")):
+        rows = dist_rows[kind]
+        kernels.append(_kernel_entry(
+            f"walk_kernel<{kind}> ring hop, {DIST_ENTRIES} shards", replaces
+            + " (ring hops: raytpu/dist/bigscene.py:211-227)",
+            dist_launches[kind], err_of(kind, rows), rows))
     for k in kernels:
         if not (math.isfinite(k["ms"]) and k["launches"] > 0):
             raise AssertionError(f"{k['name']}: no time or no launch")
@@ -4147,6 +4528,7 @@ def main():
                       if k not in ("rows", "render")},
          "instanced_32": inst32["turns_ms"],
          "mxu_image": mxu["image"], "query": query, "cli": cli,
+         "dist": dist,
          "records": record},
         indent=1, default=str))
     print(f"[done] {time.perf_counter() - started:.0f} s")

@@ -16,7 +16,9 @@ goes through their plain PyTorch version instead.  Around the render sit
 adaptive supersampling and the debug channels (``render/supersample.py``,
 ``render/debug.py``), the scene loaders (TOML, OBJ, FBX: ``scene/``),
 PNG and AVI output (``io/``) and the CLI (``cli/``, ``python -m
-raytpu_torch``).
+raytpu_torch``).  ``dist/`` renders and fits over a single-controller
+device mesh: rays sharded over it, or the scene's tables ring-sharded
+across it for scenes larger than one device.
 
 Entry points put their tensors on the card unless the caller names another
 device (``device.py``).

@@ -18,9 +18,11 @@ file, or a path to an .obj / .fbx file (ingested like TracerModelProcessor
 did at build time).
 
 The command line runs on the card; ``main(argv, device=...)`` lets a caller
-in Python name another device.  ``--devices`` above 1 and ``--ring`` raise
-``NotImplementedError``: the port renders on one device (ROADMAP.md,
-queue 1, distribution).
+in Python name another device.  ``--devices N|all`` renders (and fits)
+over a mesh of the first N CUDA devices (dist/render.py; on the CPU, N
+shards of the CPU), and ``--ring`` also ring-shards the scene tables
+(dist/bigscene.py), as the JAX package's CLI does
+(raytpu/cli/main.py:176-249).
 """
 
 from __future__ import annotations
@@ -33,8 +35,6 @@ import sys
 
 import numpy as np
 import torch
-
-from raytpu_torch.device import distribution_unported
 
 
 def _build_scene(name: str, reflect: float, transparent: bool):
@@ -187,28 +187,58 @@ def _dump_config(cfg, out_path: str) -> None:
         f.write(cfg.to_json())
 
 
-def _check_one_device(args) -> None:
-    """``--devices`` (a count, or 'all') and ``--ring``: more than one
-    device raises, as does ring sharding."""
+def _mesh(args):
+    """The device mesh of ``--devices`` (a count, or 'all'; None: one
+    device): the first N CUDA devices, more than there are exiting as the
+    JAX CLI does; on a CPU ``device``, N entries of the CPU ('all': one)."""
     spec = getattr(args, "devices", "1")
-    if spec == "all":
-        n = (torch.cuda.device_count() if torch.device(args.device).type
-             == "cuda" else 1)
+    if spec in (None, "1", 1):
+        return None
+    from raytpu_torch.dist.mesh import make_mesh
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+        n = len(devs) if spec == "all" else int(spec)
+        if n > len(devs):
+            raise SystemExit(
+                f"--devices {spec}: only {len(devs)} devices available")
     else:
-        n = int(spec)
-    if n > 1:
-        raise distribution_unported(f"--devices {spec} (a ray-sharded "
-                                    "render over a device mesh)")
-    if getattr(args, "ring", False):
-        raise distribution_unported("--ring (ring-sharded scene tables)")
+        n = 1 if spec == "all" else int(spec)
+        devs = [dev] * n
+    if n <= 1:
+        return None
+    return make_mesh(devices=devs[:n])
 
 
-def _make_frame_renderer(flat, cfg, args):
-    """The frame renderer: ``render_image`` on the scene's device, after
-    ``--devices`` and ``--ring`` were checked (``_check_one_device``)."""
+def _make_frame_renderer(flat, cfg, mesh, ring: bool):
+    """The frame renderer of the execution mode: ``render_image`` on the
+    scene's device; with a mesh the ray-sharded render (dist/render.py),
+    and with ``ring`` the ring-sharded one (dist/bigscene.py).  The scene
+    is replicated or sharded once, here, not per frame."""
+    if ring and mesh is None:
+        raise SystemExit("--ring needs --devices > 1 (ring sharding "
+                         "splits tables across a device mesh)")
+    if ring:
+        from raytpu_torch.dist.bigscene import (render_image_ring,
+                                                shard_scene_clusters,
+                                                shard_scene_shade,
+                                                shard_scene_textures)
+
+        shards = shard_scene_clusters(flat, mesh)
+        shade = shard_scene_shade(flat, mesh)
+        tex = shard_scene_textures(flat, mesh)  # None without an atlas
+        return lambda cam, **_: render_image_ring(
+            flat, cfg, cam, mesh, shards=shards, shade=shade, texshards=tex)
+    if mesh is not None:
+        from raytpu_torch.dist.mesh import replicate_scene
+        from raytpu_torch.dist.render import render_image_sharded
+
+        rep = replicate_scene(flat, mesh)
+        return lambda cam, **_: render_image_sharded(rep, cfg, cam, mesh)
     from raytpu_torch.render import wavefront
 
-    _check_one_device(args)
     return lambda cam, progress=None, watch_path=None: wavefront.render_image(
         flat, cfg, cam, progress=progress, watch_path=watch_path)
 
@@ -220,14 +250,19 @@ def cmd_render(args) -> int:
     flat = _flatten(scene, args)
     cfg = _config(args)
     cam = _camera(args, args.width / args.height, scene_cam)
-    render = _make_frame_renderer(flat, cfg, args)
+    mesh = _mesh(args)
+    render = _make_frame_renderer(flat, cfg, mesh, args.ring)
     progress = None
-    if args.progress:
+    if args.progress and mesh is None:
         # The reference's on-screen "N.NN %" overlay (Game1.cs:331-344).
         progress = lambda done, total: print(  # noqa: E731
             f"\r{100.0 * done / total:6.2f} %", end="", flush=True)
+    elif args.progress:
+        print("(--progress is per-tile host dispatch; ignored with "
+              "--devices > 1)")
     img = render(cam, progress=progress,
-                 watch_path=args.out if args.watch else None)
+                 watch_path=args.out if args.watch and mesh is None
+                 else None)
     if args.progress:
         print()
     write_image(args.out, img)
@@ -247,7 +282,7 @@ def cmd_animate(args) -> int:
     flat = _flatten(scene, args)
     cfg = _config(args)
     base_cam = _camera(args, args.width / args.height, scene_cam)
-    render = _make_frame_renderer(flat, cfg, args)
+    render = _make_frame_renderer(flat, cfg, _mesh(args), args.ring)
 
     frame_dir = args.frame_dir or os.path.splitext(args.out)[0] + "_frames"
     os.makedirs(frame_dir, exist_ok=True)
@@ -290,7 +325,6 @@ def cmd_view(args) -> int:
     """Interactive terminal viewer (cli/interactive.py)."""
     from raytpu_torch.cli.interactive import run_interactive
 
-    _check_one_device(args)
     scene, _scene_cam = _load_scene(args)
     flat = _flatten(scene, args)
     run_interactive(flat, _config(args), host_scene=scene,
@@ -324,7 +358,10 @@ def cmd_fit(args) -> int:
     from raytpu_torch.io.image import read_image, write_image
     from raytpu_torch.render.wavefront import render_image
 
-    _check_one_device(args)
+    if args.ring:
+        raise SystemExit("--ring is not supported for fit (the command "
+                         "fits a replicated scene; the library's ring fit "
+                         "is dist/bigscene.py::make_ring_fit_step)")
     scene, scene_cam = _load_scene(args)
     flat = _flatten(scene, args)
     cfg = _config(args)
@@ -348,7 +385,7 @@ def cmd_fit(args) -> int:
     fitted, _params, losses = fit(
         flat, cfg, cam, target, fields=fields, steps=args.steps,
         learning_rate=args.lr, checkpoint_dir=args.out,
-        checkpoint_every=max(args.steps // 4, 1),
+        checkpoint_every=max(args.steps // 4, 1), mesh=_mesh(args),
     )
     with torch.no_grad():
         final = render_image(fitted, cfg, cam)
@@ -383,14 +420,18 @@ def _add_common(p):
     p.add_argument("--obj-scale", type=float, default=1.0)
     p.add_argument("--progress", action="store_true",
                    help="print percent progress (Game1.cs:331-344 overlay); "
-                        "ignored, with a warning, with --multisample")
+                        "ignored, with a warning, with --multisample, and "
+                        "with --devices > 1")
     p.add_argument("--devices", default="1",
-                   help="device parallelism: a count, or 'all'; more than "
-                        "one device is not ported yet (ROADMAP.md, queue "
-                        "1, distribution)")
+                   help="device parallelism: a count, or 'all' — shards "
+                        "rays over a 1-D mesh of the first N CUDA devices "
+                        "(dist/render.py; the scanline-pool analog, "
+                        "RayTracer.cs:48-120)")
     p.add_argument("--ring", action="store_true",
-                   help="ring-shard the scene tables across devices; not "
-                        "ported yet (ROADMAP.md, queue 1, distribution)")
+                   help="with --devices > 1: ring-shard the geometry, shade "
+                        "and texture tables across the devices, for scenes "
+                        "larger than one device's memory "
+                        "(dist/bigscene.py)")
     p.add_argument("--render-mode", default="shaded",
                    choices=("shaded", "normals", "convex"),
                    help="diagnostic channels (RayTracer.cs:563-566 "

@@ -20,9 +20,3 @@ def resolve(device) -> torch.device:
             "device; name device='cpu' to run on the CPU")
     return dev
 
-
-def distribution_unported(what: str) -> NotImplementedError:
-    """The refusal of what needs more than one device: the port renders
-    and fits on one (``ROADMAP.md``, queue 1, distribution)."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, queue 1, distribution")

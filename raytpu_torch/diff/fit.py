@@ -14,9 +14,14 @@ place, so a step takes the parameters and returns the loss.
 The walk reads the bake's cluster tables, not the current parameters:
 between re-bakes the detached hit search lags the geometry (the recompute
 of u, v and t always uses the current values).  ``fit(rebuild_every=N)``
-re-bakes every N steps (``rebuild_accel``).  The sharded fit of the
-reference (a device mesh) waits for distribution: ROADMAP.md, queue 1,
-distribution.
+re-bakes every N steps (``rebuild_accel``).
+
+With a device mesh (dist/mesh.py) the step is the JAX package's sharded
+step (raytpu/diff/fit.py:117-140): the rays are cut into equal shards,
+each entry runs its forward and backward on its replica of the scene and
+of the parameters, the gradients' mean over the mesh
+(``hierarchical_pmean``) becomes the parameters' ``.grad``, the loss is the
+mean over the shards, and the optimizer steps once.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ import torch
 
 from raytpu_torch.config import Quantize, RenderConfig
 from raytpu_torch.core.camera import Camera, camera_rays
-from raytpu_torch.device import distribution_unported
 from raytpu_torch.diff.params import (GEOMETRY, SHADE_COLUMNS,
                                       SHADE_CONST_FIELDS, TEXTURE,
                                       apply_params, extract_params)
@@ -42,11 +46,6 @@ Optimizer = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
     return dataclasses.replace(cfg, differentiable=True,
                                quantize=Quantize.NONE)
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise distribution_unported("a sharded fit over a device mesh")
 
 
 def render_loss(scene: FlatScene, cfg: RenderConfig,
@@ -74,9 +73,11 @@ def make_fit_step(scene: FlatScene, cfg: RenderConfig,
     ``step.set_scene(s)`` swaps in a re-baked scene (``rebuild_accel``),
     ``step.set_valid(v)`` a loss mask (``render_loss``).  ``fields`` picks
     the gather's gradient channels: only geometry channels when no trained
-    field flows through the others (config.py ``grad_channels``).  ``mesh``
-    (a sharded fit) raises ``NotImplementedError``."""
-    _refuse_mesh(mesh)
+    field flows through the others (config.py ``grad_channels``).
+
+    ``mesh``: the sharded step (module docstring); the rays, the target and
+    a loss mask come in equal shards (``fit`` pads them), and the scene is
+    replicated once per ``set_scene``."""
     cfg = _diff_cfg(cfg)
     # has_dual_branch is a bake-time flag (reflection XOR refraction per
     # material).  A fit of mat_reflect can make a transparent material
@@ -94,19 +95,65 @@ def make_fit_step(scene: FlatScene, cfg: RenderConfig,
         cfg = dataclasses.replace(
             cfg, grad_channels=("all" if set(fields) & SHADE_CONST_FIELDS
                                 else "geometry"))
-    box = {"scene": dual(scene), "valid": None}
+    box = {"scene": dual(scene), "valid": None, "replicas": None}
+
+    def set_scene(s):
+        box["scene"] = dual(s)
+        if mesh is not None:
+            from raytpu_torch.dist.mesh import replicate_scene
+
+            box["replicas"] = replicate_scene(box["scene"], mesh)
+
+    set_scene(scene)
 
     def step(params, origin, direction, target):
         optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(box["scene"], cfg, params, origin, direction,
-                           target, box["valid"])
-        loss.backward()
+        if mesh is not None:
+            loss = _sharded_backward(box["replicas"], cfg, params, origin,
+                                     direction, target, box["valid"], mesh)
+        else:
+            loss = render_loss(box["scene"], cfg, params, origin, direction,
+                               target, box["valid"])
+            loss.backward()
         optimizer.step()
         return loss.detach()
 
-    step.set_scene = lambda s: box.__setitem__("scene", dual(s))
+    step.set_scene = set_scene
     step.set_valid = lambda v: box.__setitem__("valid", v)
     return step
+
+
+def _sharded_backward(replicas, cfg, params, origin, direction, target,
+                      valid, mesh):
+    """The sharded forward and backward: shard ``i`` of the rays on entry
+    ``i`` against its own copy of the parameters; the gradients' mean over
+    the mesh goes into the parameters' ``.grad``.  Returns the loss, the
+    mean of the shards' (their global mean: the shards are equal)."""
+    from raytpu_torch.dist.mesh import hierarchical_pmean
+
+    n = origin.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} rays do not cut into {mesh.size} equal "
+                         "shards: pad them (fit does, with a loss mask)")
+    chunk = n // mesh.size
+    names = sorted(params)
+    losses, grads = [], []
+    for i, (rep, dev) in enumerate(zip(replicas, mesh.device_list)):
+        s = slice(i * chunk, (i + 1) * chunk)
+        local = {k: params[k].detach().to(dev).requires_grad_()
+                 for k in names}
+        loss = render_loss(rep, cfg, local, origin[s].to(dev),
+                           direction[s].to(dev), target[s].to(dev),
+                           None if valid is None else valid[s].to(dev))
+        g = torch.autograd.grad(loss, [local[k] for k in names],
+                                allow_unused=True)
+        grads.append({k: torch.zeros_like(local[k]) if x is None else x
+                      for k, x in zip(names, g)})
+        losses.append(loss.detach())
+    mean = hierarchical_pmean(grads, mesh)
+    for k in names:
+        params[k].grad = mean[k].to(params[k].device)
+    return hierarchical_pmean(losses, mesh)
 
 
 def rebuild_accel(scene: FlatScene, params: Dict[str, torch.Tensor],
@@ -164,9 +211,10 @@ def fit(scene: FlatScene, cfg: RenderConfig, camera: Camera, target_image,
     one exists (io/checkpoint.py).  ``rebuild_every``: re-bake the cluster
     tables from the current geometry every N steps, padded to a fixed
     cluster count (``rebuild_accel``); the walk's hit search lags the
-    geometry by at most N steps.  ``mesh`` raises ``NotImplementedError``.
+    geometry by at most N steps.  ``mesh``: the sharded step
+    (``make_fit_step``), the rays padded to equal shards with rays that the
+    loss leaves out (zero error, zero gradient).
     """
-    _refuse_mesh(mesh)
     params = extract_params(scene, fields)
     # The optimizer holds the tensors in the order of their names, so a
     # saved state restores whatever order ``fields`` came in.
@@ -177,6 +225,15 @@ def fit(scene: FlatScene, cfg: RenderConfig, camera: Camera, target_image,
     target = torch.as_tensor(target_image, dtype=torch.float32,
                              device=dev).reshape(-1, 3)
     start_step = 0
+    valid = None
+    if mesh is not None:
+        n = o.shape[0]
+        pad = (-n) % mesh.size
+        if pad:
+            o = torch.cat([o, o.new_zeros((pad, 3))])
+            d = torch.cat([d, d.new_ones((pad, 3))])
+            target = torch.cat([target, target.new_zeros((pad, 3))])
+            valid = torch.arange(o.shape[0], device=dev) < n
 
     ckpt = None
     if checkpoint_dir is not None:
@@ -202,7 +259,9 @@ def fit(scene: FlatScene, cfg: RenderConfig, camera: Camera, target_image,
         pad_to = nc0 + max(8, nc0 // 8)
         scene = rebuild_accel(scene, params, pad_to)
 
-    step_fn = make_fit_step(scene, cfg, opt, fields=fields)
+    step_fn = make_fit_step(scene, cfg, opt, mesh=mesh, fields=fields)
+    if valid is not None:
+        step_fn.set_valid(valid)
     history = []
     for i in range(start_step, steps):
         if (pad_to is not None and i > start_step

@@ -36,11 +36,20 @@ shading and the row gather, never through the walk (``_trace_level``).
 ``CONVEXFLAG``) are one primary query each (``debug_mode_colors``), and
 ``_trace_level(capture_hits=True)`` hands render/debug.py the level's own
 hits.
+
+The renderer reaches geometry only through a ``query`` callable, the
+per-triangle shade rows only through ``gather`` and texels only through
+``texel_fetch`` (raytpu/render/wavefront.py:154-173, :368-416): the
+ring-sharded renderer of dist/bigscene.py injects its own and reuses every
+line of the level and shading code.  A query that sets ``supports_rows``
+(the default one) is asked for the winners' shade rows with the hits; the
+others have them gathered.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import NamedTuple, Optional
 
@@ -144,12 +153,17 @@ def _gather_tri(scene: FlatScene, tri, grad_channels: str = "all"):
 
 def _detached(scene: FlatScene) -> FlatScene:
     """The scene as the walk sees it in differentiable mode: the cluster
-    tables are the bake's (never trained), the shade rows detached."""
+    tables are the bake's (never trained), the shade rows detached (a
+    scene stripped of them, dist/bigscene.py::strip_for_ring, as it is)."""
+    if scene.tri_shade is None:
+        return scene
     return dataclasses.replace(scene, tri_shade=scene.tri_shade.detach())
 
 
-def _surface_color(scene: FlatScene, cfg: RenderConfig, tri_data, mat, u, v):
-    """Texture lookup or per-triangle color (RayTracer.cs:568-581)."""
+def _surface_color(scene: FlatScene, cfg: RenderConfig, tri_data, mat, u, v,
+                   texel_fetch=None):
+    """Texture lookup or per-triangle color (RayTracer.cs:568-581).
+    ``texel_fetch``: the texel backend (None: the scene's atlas)."""
     base = tri_data["color"][..., :3]
     if not scene.has_textures:
         return base
@@ -162,7 +176,8 @@ def _surface_color(scene: FlatScene, cfg: RenderConfig, tri_data, mat, u, v):
     h = scene.tex_hw[tex_id, 0]
     w = scene.tex_hw[tex_id, 1]
     tex = texture_mod.lookup_uv(scene.textures, tex_id, h, w, uv,
-                                cfg.address_mode, cfg.filtering)
+                                cfg.address_mode, cfg.filtering,
+                                fetch=texel_fetch)
     use = scene.mat_use_texture[mat] & (scene.mat_texture[mat] >= 0)
     return torch.where(use[..., None], tex, base)
 
@@ -171,7 +186,9 @@ def _default_query(cfg: RenderConfig):
     """Bind cfg's intersector settings into the standard nearest-hit query.
 
     The renderer reaches geometry only through a ``query`` callable, so a
-    caller may pass its own (for instance one that records each query)."""
+    caller may pass its own (for instance one that records each query).
+    This one sets ``supports_rows``: asked ``with_rows=True``, it returns
+    the winners' shade rows with the hits."""
 
     def query(scene, origin, direction, *, ignore_tri=None, ignore_mesh=None,
               t_max=None, any_hit=False, cull=True, with_rows=False):
@@ -186,11 +203,12 @@ def _default_query(cfg: RenderConfig):
             cull_nbuf=cfg.cull_nbuf, t_max=t_max, any_hit=any_hit,
             with_rows=with_rows)
 
+    query.supports_rows = True
     return query
 
 
 def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
-                  hit_tri, valid, query):
+                  hit_tri, valid, query, gather=_gather_tri):
     """Per-fragment light sum with shadow rays (RayTracer.cs:533-542).  An
     opaque occluder blocks the light fully; a transparent one lets ``1 -
     alpha`` of it through (IsLightPathObstructed, RayTracer.cs:465-502), so
@@ -200,7 +218,9 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
 
     ``valid`` masks live fragments: dead lanes carry garbage ``frag_pos``,
     so their shadow rays get NaN directions — they never hit and stay out of
-    the walk's tile beams."""
+    the walk's tile beams.  ``gather``: the shade-row backend, which
+    resolves a transparent occluder's row."""
+    gather = _bound_gather(cfg, gather)
     total = torch.zeros_like(frag_pos)
     lt = scene.lights
     wscene = _detached(scene) if cfg.differentiable else scene
@@ -225,7 +245,8 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
         # field is provably clear starts there; a directional query stops
         # at its own block's exit when nothing lies beyond it.  Exact, and
         # computed on every frame.
-        use_clear = cfg.shadow_clearance and "tri_block" in scene.clusters
+        use_clear = (cfg.shadow_clearance and scene.clusters is not None
+                     and "tri_block" in scene.clusters)
         # Shadow visibility is discrete: in differentiable mode the query
         # sees detached inputs (its outputs carry no gradient).
         if reverse:
@@ -255,7 +276,7 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
                 any_hit=not scene.has_transparent)
         obstructed = shadow.hit & (shadow.t < sdist)
         if scene.has_transparent:
-            occ = _gather_tri(scene, shadow.tri, cfg.grad_channels)
+            occ = gather(scene, shadow.tri)
             occ_transparent = scene.mat_transparent[
                 scene.mesh_material[occ["mesh"]]]
             light_amount = torch.where(
@@ -299,14 +320,26 @@ def _clear_directional(clusters, dl, hit_tri, frag_pos, tmax_q):
                        tmax_q)
 
 
+def _bound_gather(cfg: RenderConfig, gather):
+    """``gather``, with cfg's gradient-channel contract bound in when it is
+    the default one (an injected gather manages its own gradients)."""
+    if gather is _gather_tri:
+        return functools.partial(_gather_tri,
+                                 grad_channels=cfg.grad_channels)
+    return gather
+
+
 def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
-                 is_max_level: bool, query, capture_hits: bool = False):
+                 is_max_level: bool, query, capture_hits: bool = False,
+                 gather=_gather_tri, texel_fetch=None):
     """One wavefront level: intersect, shade, and spawn the reflection
     child and (in scenes with transparency) the refraction child.
 
     ``capture_hits``: also return ``(hit, frag_pos)``, so that
     render/debug.py draws the level's own intersections instead of
-    querying again."""
+    querying again.  ``query``/``gather``/``texel_fetch``: the backends
+    (module docstring)."""
+    gather = _bound_gather(cfg, gather)
     # Dead lanes become non-finite: they never hit and stay out of the
     # walk's tile beams.
     direction = torch.where(rays.alive[..., None], rays.direction, _NAN)
@@ -322,7 +355,7 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
         # gather, whose misses take the last row.
         hit = query(_detached(scene), rays.origin.detach(),
                     direction.detach(), **qargs)
-        td = _gather_tri(scene, hit.tri, cfg.grad_channels)
+        td = gather(scene, hit.tri)
         # Rays that cannot hit (dead lanes; refraction children of a total
         # internal reflection, whose direction is NaN) recompute with a
         # zero direction: their values are masked below, and a zero
@@ -343,10 +376,16 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
         hit = hit._replace(u=torch.where(hit.hit, u_d, 0.0),
                            v=torch.where(hit.hit, v_d, 0.0),
                            t=torch.where(hit.hit, t_d, hit.t))
-    else:
+    elif getattr(query, "supports_rows", False):
         hit, krows = query(scene, rays.origin, direction, with_rows=True,
                            **qargs)
         td = shade_row_views(krows, mesh_as_value=True)
+    else:
+        # A query without rows (the ring's): the rows are gathered, misses
+        # reading the gather's placeholder row (raytpu/render/wavefront.py:
+        # 400-416).
+        hit = query(scene, rays.origin, direction, **qargs)
+        td = gather(scene, hit.tri)
     mask = hit.hit & rays.alive
     tri = hit.tri
     mat = scene.mesh_material[td["mesh"]]
@@ -365,8 +404,9 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
     frag_pos = (td["v1"] + td["e1"] * hit.u[..., None]
                 + td["e2"] * hit.v[..., None])
 
-    light = _light_result(scene, cfg, frag_pos, normal, tri, mask, query)
-    surface = _surface_color(scene, cfg, td, mat, hit.u, hit.v)
+    light = _light_result(scene, cfg, frag_pos, normal, tri, mask, query,
+                          gather)
+    surface = _surface_color(scene, cfg, td, mat, hit.u, hit.v, texel_fetch)
     refl = scene.mat_reflect[mat][..., None]
     alpha = td["color"][..., 3]
     transparent = scene.mat_transparent[mat] & scene.has_transparent
@@ -453,7 +493,7 @@ def primary_rays(origin, direction, alive=None) -> RaySet:
 
 
 def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin,
-                      direction, query=None):
+                      direction, query=None, gather=_gather_tri):
     """Diagnostic render channels (RayTracer.cs:563-566,
     raytpu/render/wavefront.py:541-584).
 
@@ -464,7 +504,7 @@ def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin,
     if query is None:
         query = _default_query(cfg)
     hit = query(scene, origin, direction, cull=True)
-    td = _gather_tri(scene, hit.tri)
+    td = gather(scene, hit.tri)
     mat = scene.mesh_material[td["mesh"]]
     if cfg.render_mode == RenderMode.NORMALS:
         interp = scene.mat_interp_normals[mat]
@@ -485,19 +525,22 @@ def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin,
 
 
 def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
-                 alive=None, query=None):
+                 alive=None, query=None, gather=_gather_tri,
+                 texel_fetch=None):
     """Batched CastRay: colors (R, 3) for an arbitrary set of primary rays.
     Miss = black (RayTracer.cs:729-735).  ``alive`` (optional (R,) bool):
     the rays that are traced; the others take NaN directions and come back
     black (the supersampler's dead quadrants).  ``query``: the nearest-hit
-    backend (default: cfg's intersector).  A debug ``render_mode`` gives
-    ``debug_mode_colors``."""
+    backend (default: cfg's intersector); ``gather``, ``texel_fetch``: the
+    shade-row and texel backends (module docstring).  A debug
+    ``render_mode`` gives ``debug_mode_colors``."""
     if query is None:
         query = _default_query(cfg)
     if cfg.render_mode != RenderMode.SHADED:
         if alive is not None:
             direction = torch.where(alive[..., None], direction, _NAN)
-        return debug_mode_colors(scene, cfg, origin, direction, query)
+        return debug_mode_colors(scene, cfg, origin, direction, query,
+                                 gather)
     rays = primary_rays(origin, direction, alive)
     # The children's layout (module docstring): dual-branch doubling, or
     # merged into the parents' slots.
@@ -507,7 +550,9 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
     orders = [None] * (cfg.max_reflections + 1)
     for level in range(cfg.max_reflections + 1):
         is_max = level == cfg.max_reflections
-        record, children = _trace_level(scene, cfg, rays, is_max, query)
+        record, children = _trace_level(scene, cfg, rays, is_max, query,
+                                        gather=gather,
+                                        texel_fetch=texel_fetch)
         if not is_max:
             refl_rays, refr_rays = children
             if dual:
@@ -572,18 +617,22 @@ def _pad_rays(origin, direction, tile: int):
 
 
 def render_rays(scene: FlatScene, cfg: RenderConfig, origin, direction,
-                on_tile=None):
+                on_tile=None, query=None, gather=_gather_tri,
+                texel_fetch=None):
     """Trace an arbitrary ray batch tile by tile (``cfg.tile_pixels`` rays
     each; the last tile is padded with rays that are traced and dropped).
     ``on_tile(done, total, colors)``, where given, runs after each tile,
-    with the list of the tiles' colors so far."""
+    with the list of the tiles' colors so far.  ``query``, ``gather``,
+    ``texel_fetch``: the backends (``trace_colors``)."""
     origin, direction, n = _pad_rays(origin, direction, cfg.tile_pixels)
     tile = cfg.tile_pixels
     tiles = origin.shape[0] // tile
     colors = []
     for i in range(tiles):
         colors.append(trace_colors(scene, cfg, origin[i * tile:(i + 1) * tile],
-                                   direction[i * tile:(i + 1) * tile]))
+                                   direction[i * tile:(i + 1) * tile],
+                                   query=query, gather=gather,
+                                   texel_fetch=texel_fetch))
         if on_tile is not None:
             on_tile(i + 1, tiles, colors)
     return torch.cat(colors)[:n]

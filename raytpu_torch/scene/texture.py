@@ -50,17 +50,28 @@ def _clip(i, hi):
     return torch.minimum(torch.clamp(i, min=0), hi)
 
 
-def sample_point(images, tex_id, height, width, uv):
+def _fetch(images, fetch):
+    if fetch is None:
+        return lambda t, y, x: images[t, y, x]  # noqa: E731
+    return fetch
+
+
+def sample_point(images, tex_id, height, width, uv, fetch=None):
     """Point filtering (Material.cs:145-160).
 
     ``images``: (T, H_pad, W_pad, 3) raw byte values; ``tex_id``: (...,)
     per-sample texture index; ``height/width``: (...,) true sizes;
-    ``uv``: (..., 2) addressed UVs."""
+    ``uv``: (..., 2) addressed UVs.
+
+    ``fetch(tex_id, y, x) -> (..., 3)`` raw bytes (optional): the texel
+    backend, for instance the ring-sharded atlas of
+    dist/bigscene.py::make_texel_fetch_ring; ``images`` may then be
+    None."""
     wf = (width - 1).to(torch.float32)
     hf = (height - 1).to(torch.float32)
     x = _clip(torch.trunc(uv[..., 0] * wf).to(torch.int32), width - 1)
     y = _clip(torch.trunc(uv[..., 1] * hf).to(torch.int32), height - 1)
-    return images[tex_id, y, x] * BYTE_RECIPROCAL
+    return _fetch(images, fetch)(tex_id, y, x) * BYTE_RECIPROCAL
 
 
 def _ieee_remainder(x, y):
@@ -68,8 +79,10 @@ def _ieee_remainder(x, y):
     return x - y * torch.round(x / y)
 
 
-def sample_bilinear(images, tex_id, height, width, uv):
-    """Bilinear filtering with the reference's quirks (Material.cs:162-232)."""
+def sample_bilinear(images, tex_id, height, width, uv, fetch=None):
+    """Bilinear filtering with the reference's quirks (Material.cs:162-232).
+
+    ``fetch``: the texel backend (see sample_point)."""
     wf = width.to(torch.float32)
     hf = height.to(torch.float32)
     texel_w = 1.0 / wf  # texelDensity (Material.cs:67)
@@ -84,10 +97,11 @@ def sample_bilinear(images, tex_id, height, width, uv):
                width - 1)
     y2 = _clip(torch.trunc((v + texel_h) * (hf - 1.0)).to(torch.int32),
                height - 1)
-    c_base = images[tex_id, y, x]
-    c_x = images[tex_id, y, x2]
-    c_y = images[tex_id, y2, x]
-    c_xy = images[tex_id, y2, x2]
+    fetch = _fetch(images, fetch)
+    c_base = fetch(tex_id, y, x)
+    c_x = fetch(tex_id, y, x2)
+    c_y = fetch(tex_id, y2, x)
+    c_xy = fetch(tex_id, y2, x2)
     # The reference's +0.5 weights (Material.cs:221-224), replicated.
     dx = (rem_x * wf + 0.5)[..., None]
     dy = (rem_y * hf + 0.5)[..., None]
@@ -102,11 +116,13 @@ def sample_bilinear(images, tex_id, height, width, uv):
 
 
 def lookup_uv(images, tex_id, height, width, uv, address_mode: UVAddressMode,
-              filtering: TextureFiltering):
-    """Material.LookupUV (Material.cs:71-100)."""
+              filtering: TextureFiltering, fetch=None):
+    """Material.LookupUV (Material.cs:71-100).  ``fetch``: the texel
+    backend (see sample_point)."""
     uv = address_uv(uv, address_mode)
     if filtering == TextureFiltering.POINT:
-        return sample_point(images, tex_id, height, width, uv)
+        return sample_point(images, tex_id, height, width, uv, fetch=fetch)
     if filtering == TextureFiltering.BILINEAR:
-        return sample_bilinear(images, tex_id, height, width, uv)
+        return sample_bilinear(images, tex_id, height, width, uv,
+                               fetch=fetch)
     raise ValueError(filtering)

@@ -136,7 +136,7 @@ class FlatScene:
 
     @property
     def device(self) -> torch.device:
-        return self.tri_shade.device
+        return self.mesh_material.device
 
     def to(self, device) -> "FlatScene":
         """A copy with every tensor on ``device``."""

@@ -361,19 +361,24 @@ def test_cli_fit_matches_reference(tmp_path, same_rays, monkeypatch, capsys):
 
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
-    """More than one device and ring sharding raise, naming ROADMAP.md's
-    distribution item ('all' devices on the CPU is one); the command line
-    runs on the card, so without one ``python -m raytpu_torch`` fails
-    instead of rendering on the CPU."""
+    """``--ring`` without a mesh of more than one device exits, as the JAX
+    CLI does (raytpu/cli/main.py:206-208), and so does ``fit --ring``
+    (the command fits a replicated scene); 'all' devices on the CPU is
+    one; the command line runs on the card, so without one ``python -m
+    raytpu_torch`` fails instead of rendering on the CPU."""
     import subprocess
     import sys
 
     base = ["render", "--scene", "crate", "--width", "8", "--height", "8",
             "--max-reflections", "0", "--out", str(tmp_path / "r.png")]
-    for extra in (["--devices", "2"], ["--ring"]):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1, distribution"):
+    for extra in (["--ring"], ["--ring", "--devices", "1"]):
+        with pytest.raises(SystemExit, match="--ring needs --devices > 1"):
             tcli.main(base + extra, device="cpu")
+    fit = ["fit", "--scene", "crate", "--ring", "--devices", "2", "--out",
+           str(tmp_path / "fit")]
+    with pytest.raises(SystemExit, match="--ring is not supported for fit"):
+        tcli.main(fit, device="cpu")
+    assert not (tmp_path / "r.png").exists()
     assert tcli.main(base + ["--devices", "all"], device="cpu") == 0
     assert (tmp_path / "r.png").exists()
     (tmp_path / "r.png").unlink()

@@ -372,9 +372,18 @@ def test_fit_with_rebakes_keeps_shapes_and_descends():
 
 
 def test_sharded_fit_raises():
+    """A sharded step takes equal shards of rays (``fit`` pads them) and
+    raises on others; a mesh of CUDA entries without a card raises."""
+    from raytpu_torch.dist.mesh import make_mesh
+
     flat = sphere_and_plane("torch").flatten(device="cpu", cluster_size=16)
-    opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.0)
-    with pytest.raises(NotImplementedError, match="queue 1, distribution"):
-        pfit.make_fit_step(flat, PCFG, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, distribution"):
-        pfit.fit(flat, PCFG, Camera(), np.zeros((W, W, 3)), mesh=object())
+    params = extract_params(flat, GEOMETRY)
+    opt = torch.optim.SGD(list(params.values()), lr=0.0)
+    step = pfit.make_fit_step(flat, PCFG, opt, mesh=make_mesh(["cpu"] * 3),
+                              fields=GEOMETRY)
+    o, d = camera_rays(Camera(position=POSITION), W, W, device="cpu")
+    with pytest.raises(ValueError, match="equal shards"):
+        step(params, o, d, torch.zeros((W * W, 3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfit.fit(flat, PCFG, Camera(), np.zeros((W, W, 3)),
+                 mesh=make_mesh(["cuda"] * 2))
