@@ -47,6 +47,7 @@ from raytpu_torch.dist.render import render_image_sharded
 from raytpu_torch.kernels.fused import nearest_hit_fused
 from raytpu_torch.render import wavefront
 from raytpu_torch.render.supersample import render_image_multisampled
+from tests.jax_traced import traced
 from tests.torch_scenes import (jax_bake, random_rays, sphere_and_plane, t,
                                 to_port)
 
@@ -59,19 +60,6 @@ CPU4 = ["cpu"] * 4
 # axis-aligned grid fires rays exactly down shared edges, where exact-t
 # ties go to the shard visited first on the ring (tests/test_dist.py:210).
 FIT_POSITION = (0.313, 16.17, 31.9)
-
-
-def traced(fn, *args, **kwargs):
-    """``fn(*args, **kwargs)`` traced once under ``jax.jit``.
-
-    For the JAX package's ring programs: their code is unchanged, only the
-    dispatch differs.  Called eagerly, the ``shard_map`` body dispatches
-    one operation at a time, and every ring hop and bounce level compiles
-    its operations again.  Every argument is closed over, not passed in:
-    scenes, shards and meshes stay concrete, so host-side reads
-    (``np.asarray`` of a scene table in ``shard_scene_clusters``) and the
-    shard dicts' integer fields keep working."""
-    return jax.jit(lambda: fn(*args, **kwargs))()
 
 
 @pytest.fixture(scope="module")
