@@ -11,10 +11,14 @@ one cell, in one process on the card:
 - the control on ``--control`` of those seeds: the reference computed in
   bfloat16 put in the program's place, compared with the float32
   reference;
-- for a fit cell, the fault "half the batch left out, the mean taken over
-  the rest" on the same seeds, in the reference put in the program's
-  place (the fault "a step that returns its state unchanged" reads 1 on
-  the change without a run).
+- for a fit cell, the faults of its mix (``faults``: "half the batch
+  left out, the mean taken over the rest", and for the textured fit "the
+  texel gradient dropped") on the same seeds, in the reference put in the
+  program's place (the fault "a step that returns its state unchanged"
+  reads 1 on the change without a run).
+
+The cell's scene and mix are found by name as a run finds them
+(workload.py's ``scene_module`` and ``mix_class``).
 
 The benchmark's own runs never run this.
 """
@@ -28,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from rtbench import reference, scene, workload
+from rtbench import workload
 
 
 def main(argv=None) -> int:
@@ -47,20 +51,23 @@ def main(argv=None) -> int:
     config = workload.load("configs", cell["config"])
     traffic = workload.load("traffic", cell["traffic"])
     dev = "cuda"
-    arrays = scene.build(config)
+    scenes, mix_class = (workload.scene_module(config),
+                         workload.mix_class(traffic))
+    arrays = scenes.build(config)
     t0 = time.perf_counter()
-    ref = reference.RefScene(arrays, dev, scene.world_matrix)
+    ref = scenes.reference(arrays, dev)
     print(f"[calibrate] reference scene {time.perf_counter() - t0:.2f} s",
           flush=True)
     seeds = [args.first + i for i in range(args.seeds)]
+    faults = getattr(mix_class, "faults", {})
     out = {"cell": args.workload, "card": torch.cuda.get_device_name(0),
-           "program": {}, "control": {}, "half_batch": {}}
+           "program": {}, "control": {}, **{f: {} for f in faults}}
     mix = None
     for n, seed in enumerate(seeds):
         t0 = time.perf_counter()
         if traffic["kind"] == "orbit":
             if mix is None:
-                mix = workload.Frames(arrays, config, traffic, seed, dev)
+                mix = mix_class(arrays, config, traffic, seed, dev)
             mix.reseed(seed)
             for _ in range(args.items):
                 mix.item()
@@ -72,8 +79,8 @@ def main(argv=None) -> int:
                 out["control"][seed] = workload.compare_frames(
                     low, mix.reference_frames(ref))
         else:
-            mix = workload.Fit(arrays, config, traffic, seed, dev,
-                               flat=None if mix is None else mix.flat)
+            mix = mix_class(arrays, config, traffic, seed, dev,
+                            flat=None if mix is None else mix.flat)
             mix.warm_up()
             want = mix.reference_steps(ref)
             nums = workload.compare_fit(mix.record, want)
@@ -82,14 +89,14 @@ def main(argv=None) -> int:
             if n < args.control:
                 low = mix.reference_steps(ref, torch.bfloat16)
                 out["control"][seed] = workload.compare_fit(low, want)
-                half = mix.reference_steps(ref, half_batch=True)
-                out["half_batch"][seed] = workload.compare_fit(half, want)
+                for fault, kw in faults.items():
+                    out[fault][seed] = workload.compare_fit(
+                        mix.reference_steps(ref, **kw), want)
         out["program"][seed] = nums
-        print(f"[calibrate] seed {seed}: {nums}; control "
-              f"{out['control'].get(seed)}; half batch "
-              f"{out['half_batch'].get(seed)} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    for part in ("program", "control", "half_batch"):
+        print(f"[calibrate] seed {seed}: {nums}; " + "; ".join(
+            f"{part} {out[part].get(seed)}" for part in ("control", *faults))
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for part in ("program", "control", *faults):
         vals = out[part]
         if vals:
             keys = next(iter(vals.values())).keys()

@@ -322,7 +322,13 @@ class Hits(NamedTuple):
 
 
 def _object_hits(scene, o, d, tri, dtype, geo=None):
-    """Barycentrics, hit point and interpolated normal on triangles
+    """Hit point and interpolated normal on triangles ``tri`` (>= 0)
+    (``object_hits_uv`` without the barycentrics)."""
+    return object_hits_uv(scene, o, d, tri, dtype, geo)[:2]
+
+
+def object_hits_uv(scene, o, d, tri, dtype, geo=None):
+    """Hit point, interpolated normal and barycentrics (u, v) on triangles
     ``tri`` (>= 0), recomputed from ``geo`` (default the scene's), with the
     program's determinant guard."""
     geo = geo or scene.geo
@@ -338,7 +344,7 @@ def _object_hits(scene, o, d, tri, dtype, geo=None):
     n = scene.normals[tri].to(dtype)
     normal = normalize(n[:, 0] + (n[:, 1] - n[:, 0]) * u[:, None]
                        + (n[:, 2] - n[:, 0]) * v[:, None])
-    return v0 + e1 * u[:, None] + e2 * v[:, None], normal
+    return v0 + e1 * u[:, None] + e2 * v[:, None], normal, u, v
 
 
 def hits(scene: RefScene, o, d, tmax=None, ignore=None, cull=True,

@@ -7,7 +7,9 @@ From the root of a checkout.  The cell, its configuration and traffic mix
 and its metrics are found by name: ``BENCHMARK.json`` lists them, the files
 are ``rtbench/configs/<config>.json``, ``rtbench/traffic/<traffic>.json``,
 ``rtbench/metrics/<metric>.py`` and ``rtbench/limits/<cell>.json`` (the
-limits of the correctness check).  ``--trace 0`` reports the cell's
+limits of the correctness check), and a configuration's scene and a
+traffic's mix where they name one (``rtbench/scenes/<scene>.py``,
+``rtbench/mixes/<mix>.py``: workload.py).  ``--trace 0`` reports the cell's
 end-to-end metrics, ``--trace 1`` runs the window under torch.profiler and
 reports its per-layer metrics.  It needs a CUDA card: without one it exits
 with 2 and prints no result.  The last line of standard output is the
@@ -20,7 +22,6 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -28,7 +29,6 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-HERE = Path(__file__).resolve().parent
 # Kernel caches at fixed paths inside the checkout, so that only the first
 # run of a cell in a checkout builds (the port's own nvcc build goes to
 # build/raytpu_torch/, fixed in raytpu_torch/kernels/build.py).
@@ -60,12 +60,9 @@ def banned_modules(modules) -> list:
 
 
 def load_metric(name: str):
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "rtbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    from rtbench.workload import load_module
+
+    return load_module("metrics", name)
 
 
 def cell_metrics(spec: dict, cell: str, traced: bool) -> list:

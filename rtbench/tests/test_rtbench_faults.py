@@ -132,3 +132,45 @@ def test_fit_control_fails(tiny):
                                 want)
     lims = workload.limits("terrain1m.fit512")
     assert any(v > lims[k]["limit"] for k, v in nums.items()), nums
+
+
+TEX = ("terrain1m-tex.fit512", "terrain1m-tex", "fit512tex")
+
+
+def _no_texel_grad(lookup):
+    """The texture sampled from a detached atlas: no texel gets a
+    gradient."""
+    def fn(images, *a, **k):
+        return lookup(images.detach(), *a, **k)
+    return fn
+
+
+@pytest.mark.parametrize("fault", [None, "unchanged", "half", "texel"])
+def test_textured_fit_cell(tiny, fault):
+    """The textured fit through run_cell's resolution of its scene and
+    mix, its checked steps run with each fault planted in the program."""
+    from raytpu_torch.diff import fit
+    from raytpu_torch.scene import texture
+
+    cell, config, traffic = TEX
+    c, t = tiny(config, traffic)
+    ctx = {None: contextlib.nullcontext(),
+           "unchanged": patched(torch.optim.Adam, "step", _no_update),
+           "half": patched(fit, "render_loss", _half_batch),
+           "texel": patched(texture, "lookup_uv", _no_texel_grad)}[fault]
+    with ctx:
+        ok, checks = drive(cell, c, t, seconds=0.2)
+    assert ok == (fault is None), checks
+
+
+def test_textured_fit_control_fails(tiny):
+    cell, config, traffic = TEX
+    c, t = tiny(config, traffic)
+    arrays = workload.scene_module(c).build(c)
+    drv = workload.mix_class(t)(arrays, c, t, SEED, "cpu")
+    ref = workload.scene_module(c).reference(arrays, "cpu")
+    want = drv.reference_steps(ref)
+    nums = workload.compare_fit(drv.reference_steps(ref, torch.bfloat16),
+                                want)
+    lims = workload.limits(cell)
+    assert any(v > lims[k]["limit"] for k, v in nums.items()), nums

@@ -29,10 +29,19 @@ def test_no_file_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    roots = set(_roots(HERE / "reference.py")) | set(_roots(HERE / "scene.py"))
+    roots = set()
+    for f in ("reference.py", "reference_textured.py", "scene.py"):
+        roots |= set(_roots(HERE / f))
     assert "raytpu_torch" not in roots
     assert roots <= {"__future__", "dataclasses", "math", "typing", "numpy",
-                     "torch"}
+                     "torch", "rtbench"}
+    # Of the harness, the textured reference takes the plain one alone.
+    tree = ast.parse((HERE / "reference_textured.py").read_text())
+    own = {(n.module, a.name) for n in ast.walk(tree)
+           if isinstance(n, ast.ImportFrom) and n.module.startswith("rtbench")
+           for a in n.names}
+    assert {m if m != "rtbench" else f"rtbench.{a}" for m, a in own} == {
+        "rtbench.reference"}
 
 
 def test_loaded_modules_are_compared_by_whole_top_level_name():

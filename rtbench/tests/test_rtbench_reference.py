@@ -120,3 +120,51 @@ def test_frame_bytes_are_to_uint8s():
     x = torch.rand(32, 48, 3) * 1.2 - 0.1
     x[0, 0] = torch.tensor([0.5, 1.5, 127.5]) / 255.0
     assert np.array_equal(to_bytes(x).numpy(), to_uint8(x))
+
+
+def _atlas():
+    """A 4x4 atlas whose texel (y, x) holds 10 y + x in red, 100 more in
+    green and 200 more in blue."""
+    y, x = torch.meshgrid(torch.arange(4.0), torch.arange(4.0),
+                          indexing="ij")
+    base = 10.0 * y + x
+    return torch.stack([base, base + 100.0, base + 200.0], -1)
+
+
+def test_bilinear_at_the_wrap_edges_blends_four_texels():
+    from rtbench import reference_textured as rt
+
+    atlas = _atlas().requires_grad_()
+    uv = torch.tensor([[-0.4, 2.35], [1.375, -0.875]])
+    got = rt.bilinear(atlas, rt.wrap(uv))
+    # (-0.4, 2.35) wraps to (0.6, 0.35).  Texel size 1/4: u / 0.25 = 2.4
+    # rounds to 2, remainder 0.1, snapped 0.5, texels trunc(0.5 * 3) = 1
+    # and trunc(0.75 * 3) = 2, neighbour weight 0.1 * 4 + 0.5 = 0.9; v /
+    # 0.25 = 1.4 rounds to 1, remainder 0.1, snapped 0.25, texels
+    # trunc(0.75) = 0 and trunc(1.5) = 1, weight 0.9.
+    want = (0.1 * 0.1 * 1 + 0.1 * 0.9 * 11 + 0.9 * 0.1 * 2
+            + 0.9 * 0.9 * 12)                           # = 10.9
+    assert torch.allclose(got[0] * 255.0, torch.tensor(
+        [want, want + 100.0, want + 200.0]), rtol=1e-5)
+    # (1.375, -0.875) wraps to (0.375, 0.125), both on a half texel: u /
+    # 0.25 = 1.5 rounds (half to even) to 2, remainder -0.125, snapped
+    # 0.5, texels 1 and 2, weight 0; v / 0.25 = 0.5 rounds to 0, remainder
+    # 0.125, snapped 0, texels trunc(0) = 0 and trunc(0.75) = 0, weight 1:
+    # texel (0, 1) alone.
+    assert (got[1] * 255.0).tolist() == pytest.approx([1.0, 101.0, 201.0])
+    # Texel gradients through plain indexing: the blend's weights / 255.
+    got[0, 0].backward()
+    g = atlas.grad[..., 0] * 255.0
+    assert torch.allclose(g[0:2, 1:3], torch.tensor([[0.01, 0.09],
+                                                     [0.09, 0.81]]),
+                          atol=1e-6)
+    assert float(g.sum()) == pytest.approx(1.0)
+
+
+def test_wrap_is_the_engines():
+    from rtbench import reference_textured as rt
+
+    c = torch.tensor([0.0, 0.5, 1.0, 1.25, 3.0, -0.25, -1.0, -2.5])
+    # Above 1: the remainder; below 0: one plus it (C#'s %, sign of the
+    # dividend); 1 itself stays, as -1 becomes.
+    assert rt.wrap(c).tolist() == [0.0, 0.5, 1.0, 0.25, 0.0, 0.75, 1.0, 0.5]

@@ -21,6 +21,22 @@ The traffic generator is general; a mix is data:
   steps run in set-up, are compared with the plain reference, and the same
   step and state go on into the window.
 
+A configuration or a mix names further code by file name, the way
+run.py finds a metric's reader:
+
+- ``"scene": "<name>"`` in a configuration: ``scenes/<name>.py``, whose
+  ``build(config)`` makes the host arrays, ``program_scene(arrays, config,
+  device)`` the program's bake and ``reference(arrays, device)`` the plain
+  reference's scene.  Without the key, the height field of scene.py
+  (``HEIGHT_FIELD``).
+- ``"mix": "<name>"`` in a traffic file: ``mixes/<name>.py``, whose class
+  ``Mix`` has the interface of ``Frames`` and ``Fit`` (``__init__(arrays,
+  config, traffic, seed, device)``, ``warm_up``, ``item``, ``release``,
+  ``check``).  Without the key, the class of its ``"kind"`` (``KINDS``);
+  ``"kind"`` names the family of metrics the cell reports.
+- ``"render"`` in a traffic file: further ``RenderConfig`` fields by the
+  program's own names, parsed as ``RenderConfig.from_json`` parses them.
+
 The program is ``raytpu_torch`` alone; the reference (reference.py) gets
 the same scene arrays and nothing the program made.
 """
@@ -28,11 +44,16 @@ the same scene arrays and nothing the program made.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
+import re
 import statistics
+import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -47,6 +68,19 @@ HERE = Path(__file__).resolve().parent
 def load(kind: str, name: str) -> dict:
     """``rtbench/<kind>/<name>.json``."""
     return json.loads((HERE / kind / f"{name}.json").read_text())
+
+
+@functools.cache
+def load_module(folder: str, name: str):
+    """``rtbench/<folder>/<name>.py``, loaded once by its file name (a name
+    may hold ``.`` and ``-``)."""
+    path = HERE / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"rtbench_{folder}_" + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod   # as an import would (dataclasses need it)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclasses.dataclass
@@ -106,16 +140,44 @@ def program_scene(arrays: scene.SceneArrays, config: dict, device):
                                          device=device)
 
 
+# A configuration without "scene": the height field of scene.py, baked by
+# program_scene, with reference.RefScene as the plain reference's scene.
+HEIGHT_FIELD = SimpleNamespace(
+    build=scene.build, program_scene=program_scene,
+    reference=lambda arrays, device: reference.RefScene(
+        arrays, device, scene.world_matrix))
+
+
+def scene_module(config: dict):
+    """The configuration's scene: ``scenes/<config["scene"]>.py``, or the
+    height field."""
+    name = config.get("scene")
+    return load_module("scenes", name) if name else HEIGHT_FIELD
+
+
+def mix_class(traffic: dict):
+    """The traffic's mix: ``Mix`` of ``mixes/<traffic["mix"]>.py``, or the
+    class of its kind."""
+    name = traffic.get("mix")
+    return load_module("mixes", name).Mix if name else KINDS[traffic["kind"]]
+
+
 def render_config(traffic: dict):
     """The mix's render settings; ``intersector`` (default ``AUTO``, the
-    walk on the card) names another of the program's queries."""
+    walk on the card) names another of the program's queries, and the
+    ``"render"`` object sets further fields as ``RenderConfig.from_json``
+    reads them (``{"filtering": "BILINEAR"}``)."""
     from raytpu_torch import Intersector, RenderConfig
 
-    return RenderConfig(width=traffic["width"], height=traffic["height"],
-                        max_reflections=traffic["max_reflections"],
-                        tile_pixels=traffic["tile_pixels"],
-                        intersector=Intersector[traffic.get("intersector",
-                                                            "AUTO")])
+    cfg = RenderConfig(width=traffic["width"], height=traffic["height"],
+                       max_reflections=traffic["max_reflections"],
+                       tile_pixels=traffic["tile_pixels"],
+                       intersector=Intersector[traffic.get("intersector",
+                                                           "AUTO")])
+    if "render" not in traffic:
+        return cfg
+    return RenderConfig.from_json(json.dumps(
+        {**json.loads(cfg.to_json()), **traffic["render"]}))
 
 
 def camera_at(traffic: dict, k: int):
@@ -143,7 +205,8 @@ class Frames:
 
         self.traffic = traffic
         self.cfg = render_config(traffic)
-        self.scene = program_scene(arrays, config, device)
+        self.scenes = scene_module(config)
+        self.scene = self.scenes.program_scene(arrays, config, device)
         self.instanced = bool(arrays.instances)
         draw = render_image_instanced if self.instanced else render_image
         # The frame's bytes land in one pinned host buffer; a checked
@@ -199,7 +262,7 @@ class Frames:
             for _, k, _ in self.keep]
 
     def check(self, arrays, device):
-        ref = reference.RefScene(arrays, device, scene.world_matrix)
+        ref = self.scenes.reference(arrays, device)
         got = [torch.as_tensor(np.ascontiguousarray(f), device=device)
                for _, _, f in self.keep]
         return compare_frames(got, self.reference_frames(ref))
@@ -228,10 +291,12 @@ class Fit:
         rng = np.random.default_rng(seed)
         self.pose = traffic["pose"]
         cfg = render_config(traffic)
-        self.flat = flat = flat or program_scene(arrays, config, device)
+        self.scenes = scene_module(config)
+        self.flat = flat = flat or self.scenes.program_scene(arrays, config,
+                                                             device)
         cam = camera_at(traffic, self.pose)
         target = render_image(flat, cfg, cam).reshape(-1, 3)
-        self.start = start_fields(arrays, traffic, rng, device)
+        self.start = self.start_fields(arrays, traffic, rng, device)
         params = extract_params(flat, tuple(self.start))
         with torch.no_grad():
             for k, x in params.items():
@@ -274,6 +339,14 @@ class Fit:
         self.state = None
         self.flat = None
 
+    def start_fields(self, arrays, traffic, rng, device) -> dict:
+        """The fit's first values (module-level ``start_fields``)."""
+        return start_fields(arrays, traffic, rng, device)
+
+    # The faults calibrate.py plants in the reference put in the program's
+    # place, by name: keyword arguments of reference_steps.
+    faults = {"half_batch": {"half_batch": True}}
+
     def reference_steps(self, ref, dtype=reference.F32, half_batch=False):
         """The reference's record of the checked steps from the same start."""
         t = self.traffic
@@ -284,7 +357,7 @@ class Fit:
             t["checked_steps"], dtype=dtype, half_batch=half_batch)
 
     def check(self, arrays, device):
-        ref = reference.RefScene(arrays, device, scene.world_matrix)
+        ref = self.scenes.reference(arrays, device)
         return compare_fit(self.record, self.reference_steps(ref))
 
 
@@ -389,8 +462,8 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float,
     traffic = traffic or load("traffic", cell["traffic"])
     run = Run(cell=cell_name, kind=traffic["kind"], seed=seed,
               traffic=traffic)
-    arrays = scene.build(config)
-    mix = KINDS[traffic["kind"]](arrays, config, traffic, seed, device)
+    arrays = scene_module(config).build(config)
+    mix = mix_class(traffic)(arrays, config, traffic, seed, device)
     mix.warm_up()
     sync(device)
     run.setup_s = time.perf_counter() - t0
