@@ -25,6 +25,12 @@ two-pass wavefront over ray levels:
    ``Quantize.BOUNCE`` replicates that, ``FINAL`` only rounds the
    framebuffer write, ``NONE`` is full fp32.
 
+For the tracing, ``trace_colors`` runs each level in a torch.profiler span
+``wavefront.level.<l>``, the live-first permutation in
+``wavefront.compact`` and the backward combine in ``wavefront.combine``,
+and counts the ray slots of the levels >= 1 and the live ones among them
+(``slot_counts``).
+
 Differentiable mode (``cfg.differentiable``) detaches the discrete
 search, inputs and outputs alike, and recomputes (u, v, t) from the hit
 triangle's gathered row, so gradients reach the scene parameters through
@@ -524,6 +530,28 @@ def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin,
     return torch.where(hit.hit[..., None], color, 0.0)
 
 
+# The ray slots of the levels >= 1, for the tracing: how many they carried
+# (counted on the host from the shapes) and the live ones among them (a sum
+# kept on each device, {device: int64 tensor}; a frame reads nothing of it
+# to the host).
+_SLOTS = {"carried": 0, "live": {}}
+
+
+def _count_slots(alive):
+    _SLOTS["carried"] += alive.shape[0]
+    live = _SLOTS["live"]
+    if alive.device not in live:
+        live[alive.device] = torch.zeros((), dtype=torch.int64,
+                                         device=alive.device)
+    live[alive.device] += alive.sum()
+
+
+def slot_counts():
+    """(slots carried, live slots) of the levels >= 1 so far, over every
+    device; reading the live ones waits for each device."""
+    return _SLOTS["carried"], sum(int(v) for v in _SLOTS["live"].values())
+
+
 def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
                  alive=None, query=None, gather=_gather_tri,
                  texel_fetch=None):
@@ -550,9 +578,12 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
     orders = [None] * (cfg.max_reflections + 1)
     for level in range(cfg.max_reflections + 1):
         is_max = level == cfg.max_reflections
-        record, children = _trace_level(scene, cfg, rays, is_max, query,
-                                        gather=gather,
-                                        texel_fetch=texel_fetch)
+        if level:
+            _count_slots(rays.alive)
+        with torch.profiler.record_function(f"wavefront.level.{level}"):
+            record, children = _trace_level(scene, cfg, rays, is_max, query,
+                                            gather=gather,
+                                            texel_fetch=texel_fetch)
         if not is_max:
             refl_rays, refr_rays = children
             if dual:
@@ -563,8 +594,9 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
                     # fill whole walk tiles that end in their prologue.
                     from raytpu_torch.kernels.fused import compact_order
 
-                    order = compact_order(~rays.alive)
-                    rays = RaySet(*(x[order] for x in rays))
+                    with torch.profiler.record_function("wavefront.compact"):
+                        order = compact_order(~rays.alive)
+                        rays = RaySet(*(x[order] for x in rays))
                     orders[level + 1] = order
             elif merged:
                 # One live child per parent: it takes the parent's slot,
@@ -582,26 +614,27 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
         records.append(record)
 
     # Backward combine (child colors → parent), deepest level first.
-    color = None
-    for level in reversed(range(cfg.max_reflections + 1)):
-        rec = records[level]
-        rl = rec.a.shape[0]
-        if color is None:
-            node = rec.a
-        else:
-            if orders[level + 1] is not None:
-                # The child level ran live-first: back to [reflection |
-                # refraction] slot order.
-                color = color[_inverse(orders[level + 1])]
-            node = rec.a + rec.b * color[:rl]
-            if dual:
-                node = node + rec.c[..., None] * color[rl:]
-        node = torch.where(rec.mask[..., None], node, 0.0)
-        if cfg.quantize == Quantize.BOUNCE:
-            node = quantize_color(node)
-        color = node
-    if cfg.quantize == Quantize.FINAL:
-        color = quantize_color(color)
+    with torch.profiler.record_function("wavefront.combine"):
+        color = None
+        for level in reversed(range(cfg.max_reflections + 1)):
+            rec = records[level]
+            rl = rec.a.shape[0]
+            if color is None:
+                node = rec.a
+            else:
+                if orders[level + 1] is not None:
+                    # The child level ran live-first: back to [reflection |
+                    # refraction] slot order.
+                    color = color[_inverse(orders[level + 1])]
+                node = rec.a + rec.b * color[:rl]
+                if dual:
+                    node = node + rec.c[..., None] * color[rl:]
+            node = torch.where(rec.mask[..., None], node, 0.0)
+            if cfg.quantize == Quantize.BOUNCE:
+                node = quantize_color(node)
+            color = node
+        if cfg.quantize == Quantize.FINAL:
+            color = quantize_color(color)
     return color
 
 
