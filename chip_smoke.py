@@ -3058,23 +3058,22 @@ def _against_walk(flat, call, got, walk):
 
 def _record_frame(flat, cfg, o, d, base):
     """``trace_colors`` of primary rays ``o``, ``d`` through the query
-    ``base``: the colours, every query (``_recording_hook``) and the
-    wavefront's live-first orders, one a level after the first (its own
-    compaction of the uncompacted [reflection | refraction] children).
-    Each shadow query carries ``edge``, its fragments' distance from the
-    light's threshold: min(|n . l|, |cos - cutoff|) of a spot light (its
-    horizon and cone edge), |n . l| of a directional one.  Each level's
-    nearest query of a point-filtered textured scene carries ``texel``:
-    its hits' texture coordinates in texels before and after addressing,
-    and whether the material samples its texture."""
+    ``base``: the colours, every query (``_recording_hook``) and the live
+    child slots that each compacted dual-branch level carried (of its
+    parents' [reflection | refraction] children).  Each shadow query
+    carries ``edge``, its fragments' distance from the light's threshold:
+    min(|n . l|, |cos - cutoff|) of a spot light (its horizon and cone
+    edge), |n . l| of a directional one.  Each level's nearest query of a
+    point-filtered textured scene carries ``texel``: its hits' texture
+    coordinates in texels before and after addressing, and whether the
+    material samples its texture."""
     from raytpu_torch.config import TextureFiltering
     from raytpu_torch.core.math3d import dot, normalize
-    from raytpu_torch.kernels import fused
     from raytpu_torch.render import wavefront
     from raytpu_torch.scene import lights, texture
 
-    calls, orders, edges, texels, inside = [], [], [], [], [False]
-    compact, light_contrib = fused.compact_order, lights.light_contrib
+    calls, lives, edges, texels = [], [], [], []
+    live_slots, light_contrib = wavefront._live_slots, lights.light_contrib
     surface_color = wavefront._surface_color
 
     def contrib_of(lt, i, frag_pos, normal):
@@ -3099,28 +3098,18 @@ def _record_frame(flat, cfg, o, d, base):
                 & (scene.mat_texture[mat] >= 0)})
         return surface_color(scene, cfg_, td, mat, u, v, texel_fetch)
 
-    def order_of(dead):
-        order = compact(dead)
-        if not inside[0]:  # not the queries' own phase-1 compaction
-            orders.append(order)
-        return order
+    def live_of(alive):
+        live = live_slots(alive)
+        lives.append(live)
+        return live
 
-    def query(scene, origin, direction, **kw):
-        inside[0] = True
-        try:
-            return base(scene, origin, direction, **kw)
-        finally:
-            inside[0] = False
-
-    query.supports_rows = getattr(base, "supports_rows", False)
-
-    fused.compact_order, lights.light_contrib = order_of, contrib_of
+    wavefront._live_slots, lights.light_contrib = live_of, contrib_of
     wavefront._surface_color = surface_of
     try:
         colors = wavefront.trace_colors(flat, cfg, o, d,
-                                        query=_recording_hook(calls, query))
+                                        query=_recording_hook(calls, base))
     finally:
-        fused.compact_order, lights.light_contrib = compact, light_contrib
+        wavefront._live_slots, lights.light_contrib = live_slots, light_contrib
         wavefront._surface_color = surface_color
     per = 1 + flat.num_lights
     shadows = [c for i, c in enumerate(calls) if i % per]
@@ -3132,48 +3121,66 @@ def _record_frame(flat, cfg, o, d, base):
         call["edge"] = edge
     for call, texel in zip(nearest, texels):
         call["texel"] = texel
-    return colors, calls, orders
+    return colors, calls, lives
 
 
-def _tree_slots(calls, orders, r0, per):
+def _tree_slots(calls, lives, r0, per):
     """The recorded queries by wavefront level (``per`` a level: its
     nearest query, then one shadow query a light), and for each level the
-    position in the frame's query of every slot of the uncompacted ray tree
-    (slot c of level L >= 1 is child c // R of slot c % R of level L - 1, R
-    its ray count; c % r0 is its pixel)."""
+    position in the level's queries of every slot of the full ray tree, -1
+    where the level did not carry the slot (a dead child of a compacted
+    level).  Slot c of a dual-branch level L >= 1 is child c // T of slot
+    c % T of level L - 1, T that level's slot count; c % r0 is its pixel.
+    ``lives``: the live child slots of each compacted level
+    (``_record_frame``); without them a level of twice its parents' rays
+    carried every child, and one of as many kept its parents' slots."""
     levels = [calls[i:i + per] for i in range(0, len(calls), per)]
     dev = calls[0]["origin"].device
     tree = torch.arange(r0, device=dev)  # the tree slot of each position
     pos = [tree]
-    dual = 0
-    for lv in levels[1:]:
+    width = r0  # the tree's slots at this level
+    if lives and len(lives) not in (len(levels) - 1, len(levels)):
+        raise AssertionError(f"{len(lives)} compactions for {len(levels)} "
+                             "levels")
+    for level, lv in enumerate(levels[1:]):
         r, prev = lv[0]["origin"].shape[0], tree.shape[0]
-        if r == prev:  # the children keep their parents' slots
+        if not lives and r == prev:  # the children keep their parents' slots
             pos.append(pos[-1])
             continue
-        order = orders[dual] if orders else torch.arange(r, device=dev)
-        dual += 1
-        tree = (order // prev) * prev + tree[order % prev]
-        inv = torch.empty_like(tree)
-        inv[tree] = torch.arange(r, device=dev)
-        pos.append(inv)
-    if dual != len(orders) and orders:
-        raise AssertionError(f"{len(orders)} compactions for {dual} levels")
+        child = torch.arange(2 * prev, device=dev)
+        child = (child // prev) * width + tree[child % prev]
+        tree = child[lives[level]] if lives else child
+        width *= 2
+        at = torch.full((width,), -1, dtype=torch.long, device=dev)
+        at[tree] = torch.arange(r, device=dev)
+        pos.append(at)
     return levels, pos
 
 
 def _tree_call(call, at):
     """A recorded query with every per-ray array in tree-slot order
-    (``at``: each slot's position)."""
-    take = lambda x: None if x is None else x[at]  # noqa: E731
+    (``at``: each slot's position, -1 for a slot the level did not carry,
+    which reads as a dead ray: direction NaN, no hit)."""
+    absent = at < 0
+    idx = torch.where(absent, 0, at)
+
+    def take(x):
+        if x is None:
+            return None
+        fill = (False if x.dtype == torch.bool else
+                -1 if not x.is_floating_point() else float("nan"))
+        out = x[idx]
+        return out.masked_fill(absent.reshape(absent.shape + (1,) *
+                                              (out.ndim - 1)), fill)
+
     hit = call["hit"]
-    return dict(call, origin=call["origin"][at],
-                direction=call["direction"][at],
+    return dict(call, origin=take(call["origin"]),
+                direction=take(call["direction"]),
                 ignore_tri=take(call["ignore_tri"]),
                 ignore_mesh=take(call["ignore_mesh"]),
                 t_max=take(call["t_max"]), edge=take(call.get("edge")),
-                texel={k: x[at] for k, x in call.get("texel", {}).items()},
-                hit=type(hit)(*(x[at] for x in hit)))
+                texel={k: take(x) for k, x in call.get("texel", {}).items()},
+                hit=type(hit)(*(take(x) for x in hit)))
 
 
 def _print_tree(flat, a, b, pixel):
@@ -3185,27 +3192,29 @@ def _print_tree(flat, a, b, pixel):
     (lv_a, pos_a), (lv_b, pos_b) = (_tree_slots(f[1], f[2], r0, per)
                                     for f in (a, b))
     for level, (la, lb) in enumerate(zip(lv_a, lv_b)):
-        r = la[0]["origin"].shape[0]
-        for c in range(pixel, r, r0):
-            ia, ib = int(pos_a[level][c]), int(pos_b[level][c])
-            if not (torch.isfinite(la[0]["direction"][ia]).all()
-                    or torch.isfinite(lb[0]["direction"][ib]).all()):
+        r = pos_a[level].shape[0]
+        slots = torch.arange(pixel, r, r0, device=pos_a[level].device)
+        la = [_tree_call(c, pos_a[level][slots]) for c in la]
+        lb = [_tree_call(c, pos_b[level][slots]) for c in lb]
+        for k, c in enumerate(slots.tolist()):
+            if not (torch.isfinite(la[0]["direction"][k]).all()
+                    or torch.isfinite(lb[0]["direction"][k]).all()):
                 continue
             ha, hb = la[0]["hit"], lb[0]["hit"]
-            line = (f"      level {level} slot {c}: hit {bool(ha.hit[ia])}/"
-                    f"{bool(hb.hit[ib])} tri {int(ha.tri[ia])}/"
-                    f"{int(hb.tri[ib])} t {float(ha.t[ia]):.8g}/"
-                    f"{float(hb.t[ib]):.8g} u {float(ha.u[ia]):.7g}/"
-                    f"{float(hb.u[ib]):.7g} v {float(ha.v[ia]):.7g}/"
-                    f"{float(hb.v[ib]):.7g}")
-            if "texel" in la[0]:
-                line += (f" texel {la[0]['texel']['coord'][ia].tolist()}/"
-                         f"{lb[0]['texel']['coord'][ib].tolist()}")
+            line = (f"      level {level} slot {c}: hit {bool(ha.hit[k])}/"
+                    f"{bool(hb.hit[k])} tri {int(ha.tri[k])}/"
+                    f"{int(hb.tri[k])} t {float(ha.t[k]):.8g}/"
+                    f"{float(hb.t[k]):.8g} u {float(ha.u[k]):.7g}/"
+                    f"{float(hb.u[k]):.7g} v {float(ha.v[k]):.7g}/"
+                    f"{float(hb.v[k]):.7g}")
+            if la[0]["texel"]:
+                line += (f" texel {la[0]['texel']['coord'][k].tolist()}/"
+                         f"{lb[0]['texel']['coord'][k].tolist()}")
             for j, (sa, sb) in enumerate(zip(la[1:], lb[1:])):
-                line += (f"; light {j} hit {bool(sa['hit'].hit[ia])}/"
-                         f"{bool(sb['hit'].hit[ib])} edge "
-                         f"{float(sa['edge'][ia]):.3g}/"
-                         f"{float(sb['edge'][ib]):.3g}")
+                line += (f"; light {j} hit {bool(sa['hit'].hit[k])}/"
+                         f"{bool(sb['hit'].hit[k])} edge "
+                         f"{float(sa['edge'][k]):.3g}/"
+                         f"{float(sb['edge'][k]):.3g}")
             print(line)
 
 
@@ -3224,18 +3233,19 @@ def _trace_frames(flat, a, b):
     two frames' texture coordinates lie within TEXEL_EPS of each other
     across a texel edge.  Returns (pixels with a traced difference in
     their tree, per-query lines, untraced slots)."""
-    (_, calls_a, ord_a), (_, calls_b, ord_b) = a, b
+    (_, calls_a, live_a), (_, calls_b, live_b) = a, b
     r0 = calls_a[0]["origin"].shape[0]
     per = 1 + flat.num_lights
-    lv_a, pos_a = _tree_slots(calls_a, ord_a, r0, per)
-    lv_b, pos_b = _tree_slots(calls_b, ord_b, r0, per)
-    if [len(x) for x in lv_a] != [len(x) for x in lv_b]:
+    lv_a, pos_a = _tree_slots(calls_a, live_a, r0, per)
+    lv_b, pos_b = _tree_slots(calls_b, live_b, r0, per)
+    if ([len(x) for x in lv_a] != [len(x) for x in lv_b]
+            or [p.shape for p in pos_a] != [p.shape for p in pos_b]):
         raise AssertionError("the two frames made different queries")
     dev = calls_a[0]["origin"].device
     lines, untraced = [], 0
     here = torch.zeros(r0, dtype=torch.bool, device=dev)
     for level, (la, lb) in enumerate(zip(lv_a, lv_b)):
-        r = la[0]["origin"].shape[0]
+        r = pos_a[level].shape[0]
         # Slots whose parent has a traced difference.
         here = here[torch.arange(r, device=dev) % here.shape[0]]
         inherited = here.clone()

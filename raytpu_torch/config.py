@@ -132,13 +132,15 @@ class RenderConfig:
     cull_prepick: int = 0
     cull_nbuf: int = 4
     # Dual-branch transparent scenes (a material both reflective AND
-    # transparent) double the wavefront per level; with compaction the
-    # children are stably permuted live-first between levels so dead slots
-    # pack into all-dead intersector tiles (which exit at the cull
-    # prologue) instead of riding along in mixed tiles.  Pure permutation:
-    # per-ray results are identical.  Scenes with no dual-branch material
-    # never double at all (single live child per parent — see
-    # FlatScene.has_dual_branch) and ignore this flag.
+    # transparent) give each ray two child slots, [reflection |
+    # refraction], doubling the wavefront per level.  With compaction a
+    # level carries only its live children (in slot order; one read of
+    # their count to the host a level) and the descent stops at the first
+    # level with none; dead slots are dropped, not traced.  Without it
+    # every level carries all R * 2^l slots, the static shapes of the JAX
+    # package.  Per-ray results, and so the frame, are identical.  Scenes
+    # with no dual-branch material never double at all (single live child
+    # per parent — see FlatScene.has_dual_branch) and ignore this flag.
     compact_wavefront: bool = True
     # Cast occlusion (shadow) rays FROM the light toward the fragment for
     # positionable lights in opaque scenes: all rays of the query then

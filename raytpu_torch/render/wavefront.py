@@ -18,15 +18,18 @@ two-pass wavefront over ray levels:
    level's children sit in one of two layouts: *merged* (no material both
    reflects and refracts, so a parent has at most one live child, which
    takes the parent's slot, ``b`` and ``c`` folded into ``b``) or
-   *dual-branch* (``[reflection | refraction]``, doubling per level, live
-   rays first when ``cfg.compact_wavefront``).
+   *dual-branch* (``[reflection | refraction]``, 2·R child slots for R
+   rays).  With ``cfg.compact_wavefront`` a dual-branch level carries only
+   its live children, in slot order, and the descent stops at the first
+   level with none; without it every level carries all of its 2·R slots,
+   R·2^l at level l, as the JAX package's static shapes do.
 2. **Backward combine** — colors propagate from the deepest level to the
    root.  XNA quantizes every ``CastRay`` return into a byte ``Color``;
    ``Quantize.BOUNCE`` replicates that, ``FINAL`` only rounds the
    framebuffer write, ``NONE`` is full fp32.
 
 For the tracing, ``trace_colors`` runs each level in a torch.profiler span
-``wavefront.level.<l>``, the live-first permutation in
+``wavefront.level.<l>``, the selection of the live children in
 ``wavefront.compact`` and the backward combine in ``wavefront.combine``,
 and counts the ray slots of the levels >= 1 and the live ones among them
 (``slot_counts``).
@@ -475,11 +478,10 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
     return record, children
 
 
-def _inverse(order):
-    """The inverse of the permutation ``order``."""
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return inv
+def _live_slots(alive):
+    """The indices of the live slots, in slot order (int64).  Their count
+    is read to the host: one sync."""
+    return torch.nonzero(alive).squeeze(1)
 
 
 def primary_rays(origin, direction, alive=None) -> RaySet:
@@ -575,7 +577,9 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
     dual = scene.has_transparent and scene.has_dual_branch
     merged = scene.has_transparent and not scene.has_dual_branch
     records = []
-    orders = [None] * (cfg.max_reflections + 1)
+    # lives[l]: the slots of level l - 1's [reflection | refraction]
+    # children that level l carries (dual-branch layout, compacted).
+    lives = [None] * (cfg.max_reflections + 2)
     for level in range(cfg.max_reflections + 1):
         is_max = level == cfg.max_reflections
         if level:
@@ -590,14 +594,13 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
                 rays = RaySet(*(torch.cat([x, y])
                                 for x, y in zip(refl_rays, refr_rays)))
                 if cfg.compact_wavefront:
-                    # Live rays first (a stable permutation), so dead slots
-                    # fill whole walk tiles that end in their prologue.
-                    from raytpu_torch.kernels.fused import compact_order
-
+                    # Only the live children go on, in slot order, so walk
+                    # tiles stay as coherent as the parents'.
                     with torch.profiler.record_function("wavefront.compact"):
-                        order = compact_order(~rays.alive)
-                        rays = RaySet(*(x[order] for x in rays))
-                    orders[level + 1] = order
+                        live = _live_slots(rays.alive)
+                        rays = RaySet(*(x.index_select(0, live)
+                                        for x in rays))
+                    lives[level + 1] = live
             elif merged:
                 # One live child per parent: it takes the parent's slot,
                 # and the two combine weights fold into b.
@@ -612,20 +615,29 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
             else:
                 rays = refl_rays
         records.append(record)
+        if not rays.alive.shape[0]:
+            # No live child is left: no deeper level runs (a walk takes no
+            # empty batch).
+            break
 
     # Backward combine (child colors → parent), deepest level first.
     with torch.profiler.record_function("wavefront.combine"):
         color = None
-        for level in reversed(range(cfg.max_reflections + 1)):
+        for level in reversed(range(len(records))):
             rec = records[level]
             rl = rec.a.shape[0]
+            live = lives[level + 1]
+            if live is not None:
+                # The child level carried its live slots alone, or did not
+                # run: back to [reflection | refraction] slots, a dead
+                # slot's color exactly 0 as it is when traced (its weight
+                # in b or c is 0 too).
+                child = rec.a.new_zeros((2 * rl, 3))
+                color = (child if color is None
+                         else child.index_copy(0, live, color))
             if color is None:
                 node = rec.a
             else:
-                if orders[level + 1] is not None:
-                    # The child level ran live-first: back to [reflection |
-                    # refraction] slot order.
-                    color = color[_inverse(orders[level + 1])]
                 node = rec.a + rec.b * color[:rl]
                 if dual:
                     node = node + rec.c[..., None] * color[rl:]

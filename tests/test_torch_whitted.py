@@ -161,9 +161,9 @@ def test_point_sampled_wrap_texture(seed):
 
 
 def test_level_spans_and_slot_counts():
-    """Each level runs in its span, the live-first permutation and the
-    combine in theirs, and the levels >= 1 count their slots and the live
-    ones among them."""
+    """Each level runs in its span, the selection of the live children and
+    the combine in theirs, and the levels >= 1 count their slots and the
+    live ones among them."""
     from torch.profiler import ProfilerActivity, profile
 
     c = demo(SEEDS[0], panes=8)
@@ -174,6 +174,6 @@ def test_level_spans_and_slot_counts():
     names = {e.name for e in prof.events()}
     assert {f"wavefront.level.{i}" for i in range(4)} <= names
     assert {"wavefront.compact", "wavefront.combine"} <= names
-    # Dual-branch doubling: level l carries W * W * 2^l slots.
-    assert carried == W * W * (2 + 4 + 8)
-    assert 0 < live < carried
+    # Dual-branch doubling gives level l W * W * 2^l child slots, of which
+    # it carries the live ones alone.
+    assert 0 < live == carried <= W * W * (2 + 4 + 8)
